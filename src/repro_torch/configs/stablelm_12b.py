@@ -1,0 +1,24 @@
+"""stablelm-12b [dense] — 40L d_model=5120 32H (GQA kv=8) d_ff=13824
+vocab=100352.  [hf:stabilityai/stablelm-2-12b; hf]"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="stablelm-12b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=160,
+    d_ff=13824,
+    vocab=100352,
+    mlp_gated=True,
+    activation="silu",
+    tie_embeddings=False,
+)
+
+SMOKE_CONFIG = CONFIG.replace(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=128, vocab=256,
+)

@@ -1,0 +1,119 @@
+"""Builds the CUDA sources under ``repro_torch/csrc`` and binds them.
+
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` (all started together)
+for ``sm_90a`` into an object file, and the objects are linked into one
+shared library with a plain C interface, loaded with ctypes.  The build
+happens at first use, into ``build/repro_torch/<hash of the sources>/`` at
+the root of the checkout, so an edit to any source rebuilds.  A failed
+build raises with nvcc's error output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# argtypes of every exported function; pointers and the stream as c_void_p.
+SIGNATURES = {
+    "repro_flash_prefill": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 12
+    + [_F, _I, _I, _F, _P],
+    "repro_flash_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+    + [_L] * 10
+    + [_F, _I, _F, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sum(_sources(), []):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _run_all(cmds):
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    logs, failed = [], False
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        failed |= p.returncode != 0
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+
+
+def build() -> Path:
+    """Compiles the sources if this hash has not been built; returns the .so."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / "librepro_torch.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    cu, _ = _sources()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in cu]
+        _run_all([[nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(cu, objs)])
+        tmp_lib = Path(tmp) / lib.name
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)]])
+        os.replace(tmp_lib, lib)  # atomic: a concurrent builder sees all or nothing
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def timed_build() -> float:
+    """Builds (or finds) the library and returns the seconds it took."""
+    t0 = time.perf_counter()
+    build()
+    return time.perf_counter() - t0
+
+
+def check(err: int, name: str) -> None:
+    """Raises if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")

@@ -1,0 +1,72 @@
+"""Plain PyTorch versions of the attention kernels (the allclose targets).
+
+These restate each kernel's math with materialized intermediates (no
+blocking, no online softmax) in the kernels' (B, heads, S, hd) layout, with
+the same finite ``MASK``.  Rows with no valid key are outside the kernels'
+contract: here, as in the JAX reference, such a row gets the mean of V.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+MASK = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, H, Sq, hd)
+    k: torch.Tensor,  # (B, K, Sk, hd)
+    v: torch.Tensor,  # (B, K, Sk, hd)
+    *,
+    scale: float,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    rep = H // K
+    qg = q.reshape(B, K, rep, Sq, hd).float()
+    s = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qp >= kp
+    if window is not None:
+        ok &= (qp - kp) < window
+    s = torch.where(ok, s, MASK)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrqs,bksd->bkrqd", w, v.float())
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,  # (B, H, hd)
+    k_cache: torch.Tensor,  # (B, K, S, hd)
+    v_cache: torch.Tensor,  # (B, K, S, hd)
+    lengths: torch.Tensor,  # (B,)
+    *,
+    scale: float,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    B, H, hd = q.shape
+    K, S = k_cache.shape[1], k_cache.shape[2]
+    rep = H // K
+    qg = q.reshape(B, K, rep, hd).float()
+    s = torch.einsum("bkrd,bksd->bkrs", qg, k_cache.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kp = torch.arange(S, device=q.device)[None, :]
+    ok = kp < lengths[:, None]
+    if window is not None:
+        ok &= kp >= (lengths[:, None] - window)
+    s = torch.where(ok[:, None, None, :], s, MASK)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrs,bksd->bkrd", w, v_cache.float())
+    return o.reshape(B, H, hd).to(q.dtype)

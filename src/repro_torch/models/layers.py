@@ -1,0 +1,330 @@
+"""Shared neural building blocks: plain functions on tensors.
+
+The port of ``repro.models.layers``.  Attention has three plain paths and a
+kernel path, chosen by ``cfg.attn_impl``:
+
+  * ``naive``   - materialized (B, H, Sq, Sk) logits; tests and references.
+  * ``chunked`` - a loop over query chunks; peak memory O(Cq x Sk).
+  * ``pallas``  - the hand-written CUDA kernels (the field keeps the JAX
+    package's name); raises for CPU tensors.
+  * ``auto``    - the kernels on CUDA; on the CPU, JAX's rule: chunked when
+    ``Sq > 2 * attn_q_chunk``, else naive.
+
+The decode step follows the same rule between ``attention_decode`` and the
+decode kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops as kops
+from .config import ModelConfig
+
+Tensor = torch.Tensor
+NEG_INF = -2.0e38  # large-negative fill that survives bf16/fp32 softmax
+
+
+# --------------------------------------------------------------------------
+# Elementary ops
+# --------------------------------------------------------------------------
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+def softcap(x: Tensor, cap: Optional[float]) -> Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _gelu_tanh(x: Tensor) -> Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def activation_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu_tanh}[name]
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _rope_freq(half: int, theta: float, device: torch.device) -> Tensor:
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exponent)
+
+
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = _rope_freq(half, theta, x.device)
+    angles = positions[..., None].float() * freq  # (..., S, half)
+    sin = torch.sin(angles)[..., None, :]  # (..., S, 1, half)
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+def _mask_bias(
+    q_pos: Tensor, k_pos: Tensor, *, causal: bool, window: Optional[int], is_local: bool
+) -> Tensor:
+    """Additive bias (Sq, Sk): 0 where attendable, NEG_INF elsewhere."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None and is_local:
+        ok &= (q_pos[:, None] - k_pos[None, :]) < window
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def _qk_scale(cfg: ModelConfig) -> float:
+    return cfg.head_dim ** -0.5
+
+
+def _attend(qh: Tensor, k: Tensor, v: Tensor, bias: Tensor, cfg: ModelConfig) -> Tensor:
+    """qh (B, Sq, K, rep, hd) against k, v (B, Sk, K, hd); JAX's rounding:
+    logits in the input type, then f32; weights cast to v's type."""
+    logits = torch.einsum("bqkrd,bskd->bkrqs", qh, k).float()
+    logits = logits * _qk_scale(cfg)
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    logits = logits + bias
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bkrqs,bskd->bqkrd", w, v)
+
+
+def attention_naive(
+    q: Tensor,  # (B, Sq, H, hd)
+    k: Tensor,  # (B, Sk, K, hd)
+    v: Tensor,  # (B, Sk, K, hd)
+    *,
+    cfg: ModelConfig,
+    q_offset: int = 0,
+    causal: bool = True,
+    is_local: bool = False,
+) -> Tensor:
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    qh = q.reshape(B, Sq, K, H // K, hd)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    bias = _mask_bias(q_pos, k_pos, causal=causal, window=cfg.sliding_window, is_local=is_local)
+    return _attend(qh, k, v, bias, cfg).reshape(B, Sq, H, hd)
+
+
+def attention_chunked(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    cfg: ModelConfig,
+    q_offset: int = 0,
+    causal: bool = True,
+    is_local: bool = False,
+) -> Tensor:
+    """Loop over query chunks; full keys per chunk (exact, memory-bounded)."""
+    B, Sq, H, hd = q.shape
+    Cq = min(cfg.attn_q_chunk, Sq)
+    if Sq % Cq != 0:
+        return attention_naive(
+            q, k, v, cfg=cfg, q_offset=q_offset, causal=causal, is_local=is_local
+        )
+    K = k.shape[2]
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for start in range(0, Sq, Cq):
+        qh = q[:, start : start + Cq].reshape(B, Cq, K, H // K, hd)
+        q_pos = q_offset + start + torch.arange(Cq, device=q.device)
+        bias = _mask_bias(
+            q_pos, k_pos, causal=causal, window=cfg.sliding_window, is_local=is_local
+        )
+        outs.append(_attend(qh, k, v, bias, cfg).reshape(B, Cq, H, hd))
+    return torch.cat(outs, dim=1)
+
+
+def attention_decode(
+    q: Tensor,  # (B, 1, H, hd)
+    k_cache: Tensor,  # (B, S, K, hd)
+    v_cache: Tensor,  # (B, S, K, hd)
+    pos: Tensor,  # (B,) number of valid entries
+    *,
+    cfg: ModelConfig,
+    is_local: bool = False,
+) -> Tensor:
+    """One-token attention over the cache; local layers mask the entries
+    outside the sliding window."""
+    B, _, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    qh = q.reshape(B, K, H // K, hd)
+    logits = torch.einsum("bkrd,bskd->bkrs", qh, k_cache).float()
+    logits = logits * _qk_scale(cfg)
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    k_pos = torch.arange(S, device=q.device)
+    valid = k_pos[None, :] < pos[:, None]  # (B, S)
+    if cfg.sliding_window is not None and is_local:
+        valid &= k_pos[None, :] >= (pos[:, None] - cfg.sliding_window)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    logits = logits + torch.where(valid, zero, NEG_INF)[:, None, None, :]
+    w = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkrs,bskd->bkrd", w, v_cache)
+    return out.reshape(B, 1, H, hd)
+
+
+def _kernel_impl(cfg: ModelConfig, x: Tensor) -> bool:
+    """Whether attention runs the CUDA kernels for this config and tensor."""
+    if cfg.attn_impl == "pallas":
+        if not x.is_cuda:
+            raise RuntimeError("attn_impl='pallas' runs the CUDA kernels; got a CPU tensor")
+        return True
+    return cfg.attn_impl == "auto" and x.is_cuda
+
+
+def _kernel_window(cfg: ModelConfig, is_local: bool) -> Optional[int]:
+    return cfg.sliding_window if (cfg.sliding_window and is_local) else None
+
+
+def attention(q, k, v, *, cfg: ModelConfig, causal: bool = True, is_local: bool = False) -> Tensor:
+    if _kernel_impl(cfg, q):
+        return kops.flash_attention(
+            q, k, v, scale=_qk_scale(cfg), causal=causal,
+            window=_kernel_window(cfg, is_local), softcap=cfg.attn_logit_softcap,
+        )
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "chunked" if q.shape[1] > 2 * cfg.attn_q_chunk else "naive"
+    if impl == "chunked":
+        return attention_chunked(q, k, v, cfg=cfg, causal=causal, is_local=is_local)
+    return attention_naive(q, k, v, cfg=cfg, causal=causal, is_local=is_local)
+
+
+# --------------------------------------------------------------------------
+# Attention block (init + apply + decode)
+# --------------------------------------------------------------------------
+def _normal(shape, std: float, generator: torch.Generator, dtype, device) -> Tensor:
+    return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+
+
+def attn_init(cfg: ModelConfig, generator: torch.Generator, dtype, device) -> Dict[str, Tensor]:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = D ** -0.5
+    p = {
+        "wq": _normal((D, H, hd), s, generator, dtype, device),
+        "wk": _normal((D, K, hd), s, generator, dtype, device),
+        "wv": _normal((D, K, hd), s, generator, dtype, device),
+        "wo": _normal((H, hd, D), s, generator, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return p
+
+
+def _project(x: Tensor, w: Tensor, n_in: int = 1) -> Tensor:
+    """Contracts x's last ``n_in`` dims with w's first ``n_in`` dims (the
+    einsums "bsd,dhe->bshe", "bshe,hed->bsd", "bsd,df->bsf") as one matmul
+    over flattened dims: the same sums with far less host work per call."""
+    lead, k_dims = x.shape[: x.dim() - n_in], w.shape[:n_in]
+    out = x.reshape(*lead, -1) @ w.reshape(k_dims.numel(), -1)
+    return out.reshape(*lead, *w.shape[n_in:])
+
+
+def attn_qkv(cfg: ModelConfig, p, x: Tensor, positions: Tensor):
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_apply(
+    cfg: ModelConfig,
+    p,
+    x: Tensor,
+    *,
+    is_local: bool = False,
+    causal: bool = True,
+    positions: Optional[Tensor] = None,
+    return_kv: bool = False,
+):
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device, dtype=torch.int32).expand(B, S)
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    out = attention(q, k, v, cfg=cfg, causal=causal, is_local=is_local)
+    y = _project(out, p["wo"], 2)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attn_decode_apply(
+    cfg: ModelConfig,
+    p,
+    x: Tensor,  # (B, 1, D)
+    kv: Tuple[Tensor, Tensor],  # caches (B, S, K, hd)
+    pos: Tensor,  # (B,)
+    *,
+    is_local: bool = False,
+):
+    """Writes the new token's K/V into the caches at ``pos`` IN PLACE (the
+    JAX version returns updated copies) and attends over ``pos + 1``
+    entries.  Returns (y, kv) with kv the same, now updated, tensors."""
+    B = x.shape[0]
+    q, k_new, v_new = attn_qkv(cfg, p, x, pos[:, None])
+    k_cache, v_cache = kv
+    rows = torch.arange(B, device=x.device)
+    k_cache[rows, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, pos] = v_new[:, 0].to(v_cache.dtype)
+    if _kernel_impl(cfg, q):
+        out = kops.decode_attention(
+            q, k_cache, v_cache, pos + 1, scale=_qk_scale(cfg),
+            window=_kernel_window(cfg, is_local), softcap=cfg.attn_logit_softcap,
+        )
+    else:
+        out = attention_decode(q, k_cache, v_cache, pos + 1, cfg=cfg, is_local=is_local)
+    y = _project(out, p["wo"], 2)
+    return y, (k_cache, v_cache)
+
+
+# --------------------------------------------------------------------------
+# MLP block
+# --------------------------------------------------------------------------
+def mlp_init(cfg: ModelConfig, generator: torch.Generator, dtype, device,
+             d_ff: Optional[int] = None) -> Dict[str, Tensor]:
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
+    s_in, s_out = D ** -0.5, Fd ** -0.5
+    p = {
+        "w_in": _normal((D, Fd), s_in, generator, dtype, device),
+        "w_out": _normal((Fd, D), s_out, generator, dtype, device),
+    }
+    if cfg.mlp_gated:
+        p["w_gate"] = _normal((D, Fd), s_in, generator, dtype, device)
+    return p
+
+
+def mlp_apply(cfg: ModelConfig, p, x: Tensor) -> Tensor:
+    act = activation_fn(cfg.activation)
+    h = _project(x, p["w_in"])
+    if cfg.mlp_gated:
+        h = act(_project(x, p["w_gate"])) * h
+    else:
+        h = act(h)
+    return _project(h, p["w_out"])

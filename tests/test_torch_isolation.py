@@ -1,0 +1,87 @@
+"""The port stands apart from the JAX package and runs on CUDA unless asked.
+
+* Importing every ``repro_torch`` module and ``chip_smoke.py`` loads neither
+  jax nor any module of ``repro`` (checked in a fresh interpreter).
+* The port's copy of each config equals the JAX package's, field for field.
+* Entry points asked for no device try CUDA, and raise where it is absent.
+* ``attn_impl="pallas"`` (the hand-written kernels) raises for CPU tensors.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.models import LM
+from repro_torch.models import layers
+from repro_torch.serve import Engine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+sys.path.insert(0, {root!r})
+import chip_smoke
+import json, os, subprocess, time, torch  # what chip_smoke's phases import
+bad = sorted(n for n in sys.modules
+             if n in ("jax", "jaxlib", "ml_dtypes", "repro") or n.startswith(("jax.", "repro.")))
+print("LEAKED", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_repro():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(root=str(ROOT))],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_config_copies_match(arch):
+    assert ARCH_IDS == JAX_ARCH_IDS
+    for mine, theirs in [(get_config(arch), jax_get_config(arch)),
+                         (get_smoke_config(arch), jax_get_smoke_config(arch))]:
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+
+
+def _tiny_model():
+    cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
+    return LM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the check is for one without")
+    model = _tiny_model()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LM(model.cfg).init(torch.Generator())
+    Engine(model, device="cpu")  # asking for the CPU works
+
+
+def test_pallas_impl_raises_on_cpu():
+    model = _tiny_model()
+    cfg = model.cfg.replace(attn_impl="pallas")
+    p = model.blocks.layer(0)["attn"]
+    x = torch.randn(1, 4, cfg.d_model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layers.attn_apply(cfg, p, x)
+    cache = torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layers.attn_decode_apply(cfg, p, x[:, :1], (cache, cache.clone()),
+                                 torch.tensor([2], dtype=torch.int32))

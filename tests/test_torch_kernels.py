@@ -1,0 +1,163 @@
+"""The port's attention kernels and their plain versions against the JAX package.
+
+On the CPU the plain versions (``repro_torch.kernels.ref``) are held against
+JAX's ``kernels/ref.py`` and against the Pallas kernels run in interpret
+mode, over the shape sweeps of tests/kernels/test_kernels.py plus the head
+size 160 of stablelm-12b and ragged lengths (which Pallas cannot tile, so
+those go against ``ref.py`` only).  The ``ops`` wrappers, in the model's
+layout, are held against ``repro.kernels.ops`` with ``use_pallas=False``.
+
+The CUDA kernels themselves are held against the plain versions on the
+card by tests/test_torch_cuda.py.
+
+Tolerances as tests/kernels/test_kernels.py: f32 2e-4, bf16 3e-2.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_bkh
+from repro.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels import ops, ref
+
+TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def pair(rng, shape, dtype):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
+
+
+def assert_close(got: torch.Tensor, want, dtype):
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), np.asarray(want, np.float32), rtol=TOL[dtype], atol=TOL[dtype]
+    )
+
+
+# (B, H, K, Sq, Sk, hd, bq, bk); bq/bk = None: lengths Pallas cannot tile.
+FLASH_SHAPES = [
+    (2, 4, 2, 256, 256, 64, 128, 128),
+    (1, 8, 8, 128, 128, 32, 64, 64),  # MHA
+    (1, 8, 2, 128, 256, 64, 128, 128),  # cross-ish lengths
+    (2, 6, 2, 192, 192, 64, 64, 64),  # non-square blocks
+    (1, 4, 1, 128, 128, 160, 64, 64),  # stablelm-12b head size
+    (2, 4, 2, 100, 100, 160, None, None),  # ragged S
+]
+
+
+class TestFlashAttentionRef:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,Sq,Sk,hd,bq,bk", FLASH_SHAPES)
+    def test_matches_jax(self, dtype, B, H, K, Sq, Sk, hd, bq, bk):
+        rng = np.random.default_rng(0)
+        (jq, q), (jk, k), (jv, v) = (pair(rng, s, dtype) for s in
+                                     [(B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd)])
+        scale = hd ** -0.5
+        got = ref.flash_attention_ref(q, k, v, scale=scale, causal=True)
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert_close(got, jref.flash_attention_ref(jq, jk, jv, scale=scale, causal=True), dtype)
+        if bq is not None:
+            pallas = flash_attention_bhsd(jq, jk, jv, scale=scale, causal=True,
+                                          block_q=bq, block_k=bk)
+            assert_close(got, pallas, dtype)
+
+    @pytest.mark.parametrize(
+        "kw", [dict(window=32), dict(window=128), dict(softcap=20.0), dict(causal=False),
+               dict(window=64, softcap=30.0)],
+        ids=["window32", "window128", "softcap", "non_causal", "window_softcap"],
+    )
+    def test_mask_and_softcap(self, kw):
+        rng = np.random.default_rng(1)
+        (jq, q), (jk, k), (jv, v) = (pair(rng, s, "float32") for s in
+                                     [(1, 4, 256, 64), (1, 2, 256, 64), (1, 2, 256, 64)])
+        q, jq = q * 4, jq * 4
+        got = ref.flash_attention_ref(q, k, v, scale=0.125, **kw)
+        assert_close(got, jref.flash_attention_ref(jq, jk, jv, scale=0.125, **kw), "float32")
+        pallas = flash_attention_bhsd(jq, jk, jv, scale=0.125, block_q=64, block_k=64, **kw)
+        assert_close(got, pallas, "float32")
+
+
+# (B, H, K, S, hd, bk); bk = None: a cache length Pallas cannot tile.
+DECODE_SHAPES = [
+    (2, 4, 2, 512, 64, 128),
+    (4, 8, 8, 256, 32, 64),
+    (1, 16, 2, 1024, 64, 256),
+    (2, 8, 2, 256, 160, 128),  # stablelm-12b head size
+    (4, 8, 2, 545, 160, None),  # the Engine's max_len = prompt + gen + 1
+]
+
+
+class TestDecodeAttentionRef:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,H,K,S,hd,bk", DECODE_SHAPES)
+    def test_matches_jax(self, dtype, B, H, K, S, hd, bk):
+        rng = np.random.default_rng(2)
+        (jq, q), (jk, kc), (jv, vc) = (pair(rng, s, dtype) for s in
+                                       [(B, H, hd), (B, K, S, hd), (B, K, S, hd)])
+        lengths = rng.integers(1, S + 1, size=B).astype(np.int32)
+        scale = hd ** -0.5
+        got = ref.decode_attention_ref(q, kc, vc, torch.from_numpy(lengths), scale=scale)
+        want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lengths), scale=scale)
+        assert_close(got, want, dtype)
+        if bk is not None:
+            pallas = decode_attention_bkh(jq, jk, jv, jnp.asarray(lengths), scale=scale,
+                                          block_k=bk)
+            assert_close(got, pallas, dtype)
+
+    @pytest.mark.parametrize("kw", [dict(window=128), dict(window=100, softcap=50.0)],
+                             ids=["window", "window_softcap"])
+    def test_window_and_softcap(self, kw):
+        rng = np.random.default_rng(3)
+        (jq, q), (jk, kc), (jv, vc) = (pair(rng, s, "float32") for s in
+                                       [(2, 4, 32), (2, 4, 512, 32), (2, 4, 512, 32)])
+        lengths = np.array([400, 512], np.int32)
+        got = ref.decode_attention_ref(q, kc, vc, torch.from_numpy(lengths), scale=32 ** -0.5, **kw)
+        want = decode_attention_bkh(jq, jk, jv, jnp.asarray(lengths), scale=32 ** -0.5,
+                                    block_k=128, **kw)
+        assert_close(got, want, "float32")
+
+
+class TestOpsLayout:
+    """ops in the model's (B, S, heads, hd) layout == repro.kernels.ops."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("Sq,Sk,hd,kw", [
+        (128, 128, 32, dict()),
+        (100, 100, 160, dict(window=40, softcap=30.0)),
+        (64, 96, 64, dict(causal=False)),
+    ])
+    def test_flash_attention(self, dtype, Sq, Sk, hd, kw):
+        rng = np.random.default_rng(4)
+        (jq, q), (jk, k), (jv, v) = (pair(rng, s, dtype) for s in
+                                     [(2, Sq, 4, hd), (2, Sk, 2, hd), (2, Sk, 2, hd)])
+        got = ops.flash_attention(q, k, v, scale=hd ** -0.5, **kw)
+        want = jops.flash_attention(jq, jk, jv, scale=hd ** -0.5, use_pallas=False, **kw)
+        assert got.shape == q.shape
+        assert_close(got, want, dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("S,hd,kw", [(256, 32, dict()), (545, 160, dict(window=64))])
+    def test_decode_attention(self, dtype, S, hd, kw):
+        rng = np.random.default_rng(5)
+        (jq, q), (jk, kc), (jv, vc) = (pair(rng, s, dtype) for s in
+                                       [(2, 1, 4, hd), (2, S, 2, hd), (2, S, 2, hd)])
+        pos = np.array([100, S], np.int32)
+        got = ops.decode_attention(q, kc, vc, torch.from_numpy(pos), scale=hd ** -0.5, **kw)
+        want = jops.decode_attention(jq, jk, jv, jnp.asarray(pos), scale=hd ** -0.5,
+                                     use_pallas=False, **kw)
+        assert got.shape == q.shape
+        assert_close(got, want, dtype)
+
+    def test_cpu_runs_no_kernel(self):
+        before = dict(ops.LAUNCHES)
+        x = torch.randn(1, 8, 2, 16)
+        ops.flash_attention(x, x, x, scale=0.25)
+        ops.decode_attention(x[:, :1], x, x, torch.tensor([8]), scale=0.25)
+        assert ops.LAUNCHES == before
