@@ -1,6 +1,9 @@
-// Helpers shared by the attention kernels: element loads in either input
-// type, warp reductions and the finite mask value of the reference.
+// Helpers shared by the kernels: element loads in either input type, warp
+// reductions, the tensor-core product and the finite mask value of the
+// reference.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +73,25 @@ __device__ __forceinline__ float score(float dot, float scale, float cap) {
   float s = dot * scale;
   if (cap > 0.f) s = cap * tanhf(s / cap);
   return s;
+}
+
+// One m16n8k16 tensor-core product, bf16 in, f32 accumulate: d += a * b.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory, one row address per lane.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const auto addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // Grants a kernel the dynamic shared memory it needs above the 48 KB default.

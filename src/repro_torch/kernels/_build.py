@@ -38,6 +38,7 @@ SIGNATURES = {
     "repro_flash_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
     + [_L] * 10
     + [_F, _I, _F, _P],
+    "repro_ssd_intra_chunk": [_I, _I, _I] + [_P] * 7 + [_I] * 4 + [_L] * 10 + [_P],
 }
 
 

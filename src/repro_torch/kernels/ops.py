@@ -1,10 +1,10 @@
-"""The attention kernels in the model's layouts: the API the model layer calls.
+"""The kernels in the model's layouts: the API the model layers call.
 
 For a CUDA tensor each op launches its hand-written kernel, or raises; there
 is no fallback.  For a CPU tensor it runs the plain version in ``ref``.
 Unlike the JAX wrappers, which transpose q, k and v (and the whole cache on
-every decode) into the kernels' layout, the kernels here read the model's
-layout through strides.
+every decode) into the kernels' layout, and copy the SSD's B and C out to
+every head, the kernels here read the model's layout through strides.
 
 ``LAUNCHES`` counts the kernel launches of each op, so a run can show that
 its path went through the kernels.
@@ -12,15 +12,16 @@ its path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import ref
 from .decode_attention import flash_decode
 from .flash_attention import flash_prefill
+from .ssd_scan import ssd_intra_chunk as _ssd_kernel
 
-LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0, "ssd_intra_chunk": 0}
 
 
 def reset_launches() -> None:
@@ -75,3 +76,88 @@ def decode_attention(
     )
     LAUNCHES["flash_decode"] += 1
     return out[:, None]
+
+
+# --------------------------------------------------------------------------
+# SSD: the intra-chunk kernel, then the inter-chunk recurrence in PyTorch
+# --------------------------------------------------------------------------
+def _tpu_layout(x, a, Bm, Cm, Q: int):
+    """Model layout -> the TPU kernel's (B, nh, nC, Q, ...) views; B and C
+    are broadcast over the heads without a copy."""
+    B_, S, nh, hd = x.shape
+    N, nC = Bm.shape[-1], S // Q
+    return (x.reshape(B_, nC, Q, nh, hd).permute(0, 3, 1, 2, 4),
+            a.reshape(B_, nC, Q, nh).permute(0, 3, 1, 2),
+            Bm.reshape(B_, 1, nC, Q, N).expand(B_, nh, nC, Q, N),
+            Cm.reshape(B_, 1, nC, Q, N).expand(B_, nh, nC, Q, N))
+
+
+def _intra_chunk(x, a, Bm, Cm, Q: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The intra-chunk block in the kernel's output layout: y_diag
+    (B, S, nh, hd), states (B, nC, nh, hd, N), cum (B, S, nh), all f32."""
+    B_, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    if not x.is_cuda:
+        y, st, cum = ref.ssd_intra_chunk_ref(*_tpu_layout(x, a, Bm, Cm, Q))
+        return (y.permute(0, 2, 3, 1, 4).reshape(B_, S, nh, hd), st.permute(0, 2, 1, 4, 3),
+                cum.permute(0, 2, 3, 1).reshape(B_, S, nh))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty(B_, S, nh, hd, **f32)
+    st = torch.empty(B_, S // Q, nh, hd, N, **f32)
+    cum = torch.empty(B_, S, nh, **f32)
+    _ssd_kernel(x, a, Bm, Cm, y, st, cum, chunk=Q)
+    LAUNCHES["ssd_intra_chunk"] += 1
+    return y, st, cum
+
+
+def chunk_len(S: int, chunk: int) -> int:
+    """The chunk the chunked SSD uses for a sequence of S steps: S itself up
+    to ``chunk``, else ``chunk``, which must then divide S.  The one place
+    that rule is stated; the model's entry checks call it too."""
+    if S < 1 or (S > chunk and S % chunk):
+        raise ValueError(f"sequence length {S} must be at most the ssm chunk {chunk} "
+                         f"or a multiple of it")
+    return min(chunk, S)
+
+
+def ssd_intra_chunk(x, a, Bm, Cm, chunk: int):
+    """x (B, S, nh, hd), a (B, S, nh), Bm/Cm (B, S, N) -> the TPU kernel's
+    three tensors: y_diag (B,nh,nC,Q,hd), states (B,nh,nC,N,hd), cum
+    (B,nh,nC,Q), f32."""
+    B_, S, nh, hd = x.shape
+    Q = chunk_len(S, chunk)
+    y, st, cum = _intra_chunk(x, a, Bm, Cm, Q)
+    nC = S // Q
+    return (y.reshape(B_, nC, Q, nh, hd).permute(0, 3, 1, 2, 4), st.permute(0, 2, 1, 4, 3),
+            cum.reshape(B_, nC, Q, nh).permute(0, 3, 1, 2))
+
+
+def ssd(
+    x: torch.Tensor,  # (B, S, nh, hd), already multiplied by dt
+    a: torch.Tensor,  # (B, S, nh) log decays dt * A
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,  # (B, nh, hd, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``models.mamba2.ssd_chunked`` with the intra-chunk block on the kernel.
+    Returns (y (B, S, nh, hd) in x's type, final state (B, nh, hd, N) f32)."""
+    B_, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    Q = chunk_len(S, chunk)
+    nC = S // Q
+    y_diag, states, cum = _intra_chunk(x, a, Bm, Cm, Q)
+    cum = cum.view(B_, nC, Q, nh)
+    chunk_decay = torch.exp(cum[:, :, -1])  # (B, nC, nh)
+    h = (torch.zeros(B_, nh, hd, N, dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    h_ins = torch.empty(B_, nC, nh, hd, N, dtype=torch.float32, device=x.device)
+    for c in range(nC):  # the state entering each chunk
+        h_ins[:, c] = h
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    # y_off[b,c,l,h,p] = sum_n C[b,c,l,n] h_in[b,c,h,p,n] * exp(cum[b,c,l,h])
+    Cc = Cm.float().reshape(B_, nC, Q, N)
+    y_off = torch.matmul(Cc, h_ins.view(B_, nC, nh * hd, N).transpose(-1, -2))
+    y_off = y_off.view(B_, nC, Q, nh, hd) * torch.exp(cum)[..., None]
+    y = (y_diag.view(B_, nC, Q, nh, hd) + y_off).reshape(B_, S, nh, hd)
+    return y.to(x.dtype), h

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the attention kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
 These restate each kernel's math with materialized intermediates (no
-blocking, no online softmax) in the kernels' (B, heads, S, hd) layout, with
-the same finite ``MASK``.  Rows with no valid key are outside the kernels'
-contract: here, as in the JAX reference, such a row gets the mean of V.
+blocking, no online softmax) in the TPU kernels' layouts: (B, heads, S, hd)
+for attention, with the same finite ``MASK``, and (B, nh, nC, Q, ...) for
+the SSD intra-chunk block, all in f32.  Rows with no valid key are outside
+the attention kernels' contract: here, as in the JAX reference, such a row
+gets the mean of V.
 """
 
 from __future__ import annotations
@@ -70,3 +72,24 @@ def decode_attention_ref(
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkrs,bksd->bkrd", w, v_cache.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def ssd_intra_chunk_ref(
+    x: torch.Tensor,  # (B, nh, nC, Q, hd)
+    a: torch.Tensor,  # (B, nh, nC, Q) log decays
+    Bm: torch.Tensor,  # (B, nh, nC, Q, N)
+    Cm: torch.Tensor,  # (B, nh, nC, Q, N)
+):
+    """Returns (y_diag (B,nh,nC,Q,hd), states (B,nh,nC,N,hd), cum (B,nh,nC,Q)),
+    all f32."""
+    x32, B32, C32 = x.float(), Bm.float(), Cm.float()
+    Q = x.shape[3]
+    cum = torch.cumsum(a.float(), dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    i = torch.arange(Q, device=x.device)
+    L = torch.where(i[:, None] >= i[None, :], torch.exp(diff), 0.0)
+    scores = torch.einsum("bhcqn,bhcsn->bhcqs", C32, B32)
+    y = torch.einsum("bhcqs,bhcsp->bhcqp", scores * L, x32)
+    decay_to_end = torch.exp(cum[..., -1:] - cum)
+    states = torch.einsum("bhcqn,bhcq,bhcqp->bhcnp", B32, decay_to_end, x32)
+    return y, states, cum

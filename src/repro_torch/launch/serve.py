@@ -2,6 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_12b \
       --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2p7b \
+      --batch 4 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1p2b \
+      --batch 4 --prompt-len 1024 --gen 32
+
+The SSM and hybrid families take a prompt of at most ``ssm_chunk`` tokens
+or a multiple of it.
 
 Runs on the CUDA device unless ``--device cpu`` is given; random weights
 from ``--seed``.
@@ -17,6 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import get_model
+from repro_torch.models.mamba2 import check_prompt_len
 from repro_torch.serve import Engine
 
 
@@ -42,6 +50,11 @@ def main(argv=None) -> None:
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
+    if cfg.family in ("ssm", "hybrid"):
+        try:
+            check_prompt_len(cfg, args.prompt_len)
+        except ValueError as e:
+            ap.error(str(e))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = get_model(cfg).init(gen, device=device)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense and VLM families so far."""
+"""Model zoo of the port: the dense, VLM, SSM and hybrid families so far."""
 
 from .config import ModelConfig
 from .lm import LM
@@ -6,8 +6,6 @@ from .lm import LM
 # Families that later slices port, with the ROADMAP.md item that ports each.
 _LATER = {
     "moe": "Queue 1 item 6 (models/moe.py)",
-    "ssm": "Queue 1 item 7 (models/mamba2.py and the SSM paths of lm.py)",
-    "hybrid": "Queue 1 item 7 (models/mamba2.py and the SSM paths of lm.py)",
     "encdec": "Queue 1 item 8 (models/encdec.py)",
 }
 

@@ -1,11 +1,16 @@
-"""Decoder-only language model, dense and VLM families.
+"""Decoder-only language model: dense, VLM, SSM and hybrid families.
 
 The port of ``repro.models.lm.LM``.  ``LM`` is an ``nn.Module`` whose
 parameter names follow the JAX tree paths (``embed``, ``unembed``,
-``final_norm``, ``blocks.ln1``, ``blocks.attn.wq``, ``blocks.mlp.w_in``, ...)
-with the block weights stacked ``(L, ...)`` as in JAX, so weights bridge
-key for key.  The layer loop is a Python ``for``, so whether a layer is
-local (sliding window) is a static bool, which the kernels need.
+``final_norm``, ``blocks.ln1``, ``blocks.attn.wq``, ``blocks.mlp.w_in``,
+``blocks.mamba.in_proj``, ``shared.attn.wq``, ...) with the block weights
+stacked ``(L, ...)`` as in JAX, so weights bridge key for key.  The layer
+loop is a Python ``for``, so whether a layer is local (sliding window), and
+whether zamba2's shared attention block follows it, are static bools.
+
+The hybrid (zamba2): ONE shared attention+MLP block (``shared``) is applied
+after every ``hybrid_period``-th Mamba layer; each application has its own
+KV cache in decode.
 
 The module is built on the meta device; ``init`` (random weights with the
 reference's shapes and scales) materializes it on a device.
@@ -29,6 +34,13 @@ from .layers import (
     rms_norm,
     softcap,
 )
+from .mamba2 import (
+    check_prompt_len,
+    mamba_apply,
+    mamba_decode_step,
+    mamba_init,
+    mamba_state_init,
+)
 
 Tensor = torch.Tensor
 
@@ -40,27 +52,50 @@ def _params(shapes: Dict[str, tuple], dtype) -> nn.ParameterDict:
     )
 
 
+def _attn_shapes(cfg: ModelConfig, lead: tuple = ()) -> Dict[str, tuple]:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes = {"wq": (D, H, hd), "wk": (D, K, hd), "wv": (D, K, hd), "wo": (H, hd, D)}
+    if cfg.qk_norm:
+        shapes.update(q_norm=(hd,), k_norm=(hd,))
+    return {k: lead + v for k, v in shapes.items()}
+
+
+def _mlp_shapes(cfg: ModelConfig, lead: tuple = ()) -> Dict[str, tuple]:
+    D, Fd = cfg.d_model, cfg.d_ff
+    shapes = {"w_in": (D, Fd), "w_out": (Fd, D)}
+    if cfg.mlp_gated:
+        shapes["w_gate"] = (D, Fd)
+    return {k: lead + v for k, v in shapes.items()}
+
+
+def _norm_shapes(cfg: ModelConfig, lead: tuple = ()) -> Dict[str, tuple]:
+    names = ["ln1", "ln2"] + (["ln1_post", "ln2_post"] if cfg.post_norm else [])
+    return {n: lead + (cfg.d_model,) for n in names}
+
+
+def _cast(p, dtype):
+    """Every floating tensor of a (nested) param dict in ``dtype``: JAX's
+    ``_cast_block``, which the forward pass of the SSM stack applies."""
+    if isinstance(p, dict):
+        return {k: _cast(v, dtype) for k, v in p.items()}
+    return p.to(dtype) if p.is_floating_point() else p
+
+
+def _fill(stacked: nn.ParameterDict, i: int, fresh: Dict[str, Tensor]) -> None:
+    for name, w in fresh.items():
+        stacked[name][i].copy_(w)
+
+
 class _Blocks(nn.Module):
     """The stacked (L, ...) weights of the attention blocks."""
 
     def __init__(self, cfg: ModelConfig, dtype):
         super().__init__()
-        L, D, H, K, hd, Fd = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.head_dim, cfg.d_ff)
-        norms = {"ln1": (L, D), "ln2": (L, D)}
-        if cfg.post_norm:
-            norms.update(ln1_post=(L, D), ln2_post=(L, D))
-        for name, p in _params(norms, dtype).items():
+        L = (cfg.n_layers,)
+        for name, p in _params(_norm_shapes(cfg, L), dtype).items():
             self.register_parameter(name, p)
-        attn = {"wq": (L, D, H, hd), "wk": (L, D, K, hd), "wv": (L, D, K, hd),
-                "wo": (L, H, hd, D)}
-        if cfg.qk_norm:
-            attn.update(q_norm=(L, hd), k_norm=(L, hd))
-        self.attn = _params(attn, dtype)
-        mlp = {"w_in": (L, D, Fd), "w_out": (L, Fd, D)}
-        if cfg.mlp_gated:
-            mlp["w_gate"] = (L, D, Fd)
-        self.mlp = _params(mlp, dtype)
+        self.attn = _params(_attn_shapes(cfg, L), dtype)
+        self.mlp = _params(_mlp_shapes(cfg, L), dtype)
 
     def layer(self, i: int) -> Dict[str, Any]:
         """Layer i's weights as the nested dict the layer functions take."""
@@ -70,36 +105,80 @@ class _Blocks(nn.Module):
         return p
 
 
+class _SSMBlocks(nn.Module):
+    """The stacked (L, ...) weights of the Mamba-2 blocks; A_log, D and
+    dt_bias stay f32 in any model type, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, dtype):
+        super().__init__()
+        L, D, di, N, nh, W = (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                              cfg.n_ssm_heads, cfg.ssm_conv_width)
+        self.ln1 = _params({"ln1": (L, D)}, dtype)["ln1"]
+        self.mamba = _params({
+            "in_proj": (L, D, 2 * di + 2 * N + nh), "conv_w": (L, W, di + 2 * N),
+            "conv_b": (L, di + 2 * N), "norm": (L, di), "out_proj": (L, di, D)}, dtype)
+        self.mamba.update(_params({"A_log": (L, nh), "D": (L, nh), "dt_bias": (L, nh)},
+                                  torch.float32))
+
+    def layer(self, i: int) -> Dict[str, Any]:
+        return {"ln1": self.ln1[i], "mamba": {n: w[i] for n, w in self.mamba.items()}}
+
+
+class _SharedBlock(nn.Module):
+    """zamba2's one shared attention+MLP block (unstacked)."""
+
+    def __init__(self, cfg: ModelConfig, dtype):
+        super().__init__()
+        for name, p in _params(_norm_shapes(cfg), dtype).items():
+            self.register_parameter(name, p)
+        self.attn = _params(_attn_shapes(cfg), dtype)
+        self.mlp = _params(_mlp_shapes(cfg), dtype)
+
+    def weights(self) -> Dict[str, Any]:
+        p: Dict[str, Any] = dict(self.named_parameters(recurse=False))
+        p["attn"] = dict(self.attn.items())
+        p["mlp"] = dict(self.mlp.items())
+        return p
+
+
 class LM(nn.Module):
-    """Dense / VLM decoder for one config."""
+    """Dense / VLM / SSM / hybrid decoder for one config."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family not in ("dense", "vlm"):
-            raise ValueError(f"LM ports the dense and vlm families, not {cfg.family!r}")
+        if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
+            raise ValueError(f"LM ports the dense, vlm, ssm and hybrid families, "
+                             f"not {cfg.family!r}")
         self.cfg = cfg
+        self.is_ssm = cfg.family in ("ssm", "hybrid")
         dt = torch_dtype(cfg.dtype)
         shapes = {"embed": (cfg.vocab, cfg.d_model), "final_norm": (cfg.d_model,)}
         if not cfg.tie_embeddings:
             shapes["unembed"] = (cfg.d_model, cfg.vocab)
         for name, p in _params(shapes, dt).items():
             self.register_parameter(name, p)
-        self.blocks = _Blocks(cfg, dt)
+        self.blocks = _SSMBlocks(cfg, dt) if self.is_ssm else _Blocks(cfg, dt)
+        if cfg.family == "hybrid":
+            self.shared = _SharedBlock(cfg, dt)
+
+    def _shared_after(self, i: int) -> bool:
+        """Whether the hybrid's shared block follows layer i."""
+        period = self.cfg.hybrid_period
+        return self.cfg.family == "hybrid" and bool(period) and i % period == period - 1
 
     # ------------------------------------------------------------------
     # Init
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def init(self, generator: torch.Generator, device="cuda", dtype=None) -> "LM":
+    def init(self, generator: torch.Generator, device="cuda") -> "LM":
         """Materializes the weights on ``device`` with the reference's shapes
         and scales: embed/unembed N(0,1)*0.02, attention N*D^-0.5, w_out
-        N*F^-0.5, norms zeros.  The generator must live on ``device``."""
+        N*F^-0.5, Mamba's as ``mamba_init``, norms zeros.  The generator must
+        live on ``device``."""
         dev = resolve_device(device)
         cfg = self.cfg
-        dt = dtype or torch_dtype(cfg.dtype)
+        dt = torch_dtype(cfg.dtype)
         self.to_empty(device=dev)
-        if dt != self.embed.dtype:
-            self.to(dt)
         for p in self.parameters():
             p.zero_()
         self.embed.copy_(torch.randn(self.embed.shape, generator=generator, device=dev) * 0.02)
@@ -108,11 +187,16 @@ class LM(nn.Module):
                 torch.randn(self.unembed.shape, generator=generator, device=dev) * 0.02
             )
         for i in range(cfg.n_layers):
+            if self.is_ssm:
+                _fill(self.blocks.mamba, i, mamba_init(cfg, generator, dt, dev))
+            else:
+                _fill(self.blocks.attn, i, attn_init(cfg, generator, dt, dev))
+                _fill(self.blocks.mlp, i, mlp_init(cfg, generator, dt, dev))
+        if cfg.family == "hybrid":
             for group, fresh in (("attn", attn_init(cfg, generator, dt, dev)),
                                  ("mlp", mlp_init(cfg, generator, dt, dev))):
-                stacked = getattr(self.blocks, group)
                 for name, w in fresh.items():
-                    stacked[name][i].copy_(w)
+                    getattr(self.shared, group)[name].copy_(w)
         return self
 
     # ------------------------------------------------------------------
@@ -141,11 +225,27 @@ class LM(nn.Module):
     def hidden_states(self, tokens: Tensor) -> Tensor:
         cfg = self.cfg
         x = self._embed(tokens)
+        if self.is_ssm:
+            return rms_norm(self._ssm_stack(x), self.final_norm)
         for i in range(cfg.n_layers):
             p = self.blocks.layer(i)
             h = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), is_local=cfg.is_local_layer(i))
             x = self._block_tail(p, x, h)
         return rms_norm(x, self.final_norm)
+
+    def _ssm_stack(self, x: Tensor) -> Tensor:
+        """JAX's ``_ssm_stack``: every floating block param is cast to the
+        compute type first (in bf16 that rounds A_log, D and dt_bias)."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            p = _cast(self.blocks.layer(i), x.dtype)
+            h, _ = mamba_apply(cfg, p["mamba"], rms_norm(x, p["ln1"]))
+            x = x + h
+            if self._shared_after(i):
+                sp = _cast(self.shared.weights(), x.dtype)
+                h = attn_apply(cfg, sp["attn"], rms_norm(x, sp["ln1"]))
+                x = self._block_tail(sp, x, h)
+        return x
 
     def logits(self, hidden: Tensor) -> Tensor:
         """Einsum in the param dtype, then f32 (and the final softcap)."""
@@ -166,6 +266,9 @@ class LM(nn.Module):
         cfg = self.cfg
         B, S = tokens.shape
         state = self.decode_init(B, max_len or S)
+        if self.is_ssm:
+            x = self._ssm_prefill(state, self._embed(tokens))
+            return self.logits(rms_norm(x[:, -1:], self.final_norm)), state
         ks, vs = state["kv"]
         x = self._embed(tokens)
         for i in range(cfg.n_layers):
@@ -181,18 +284,60 @@ class LM(nn.Module):
         hidden = rms_norm(x[:, -1:], self.final_norm)
         return self.logits(hidden), state
 
+    def _ssm_prefill(self, state: Dict[str, Any], x: Tensor) -> Tensor:
+        """JAX's ``_ssm_prefill`` into ``state``: per layer the final SSM
+        state and the conv tail; per shared-block call its K/V, zero past
+        the prompt.  The block params are used uncast (A_log, D and dt_bias
+        in f32), as in JAX."""
+        cfg = self.cfg
+        S = x.shape[1]
+        check_prompt_len(cfg, S)
+        hs, convs = state["ssm"]["h"], state["ssm"]["conv"]
+        inv = 0
+        for i in range(cfg.n_layers):
+            p = self.blocks.layer(i)
+            h, hstate, tail = mamba_apply(cfg, p["mamba"], rms_norm(x, p["ln1"]),
+                                          return_conv_tail=True)
+            x = x + h
+            hs[i] = hstate
+            convs[i] = tail
+            if self._shared_after(i):
+                sp = self.shared.weights()
+                h, (k, v) = attn_apply(cfg, sp["attn"], rms_norm(x, sp["ln1"]), return_kv=True)
+                x = x + h
+                x = x + mlp_apply(cfg, sp["mlp"], rms_norm(x, sp["ln2"]))
+                state["shared_kv"][0][inv, :, :S] = k
+                state["shared_kv"][1][inv, :, :S] = v
+                inv += 1
+        state["pos"].fill_(S)
+        return x
+
     # ------------------------------------------------------------------
     # Decode (one token, persistent cache)
     # ------------------------------------------------------------------
     def decode_init(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """Zero decode state: dense KV caches (L, B, max_len, K, hd); for the
+        SSM families the per-layer SSM state (L, B, nh, hd, N) in f32 and conv
+        window (L, B, W-1, C), and the hybrid's shared-block caches
+        (n_calls, B, max_len, K, hd)."""
         cfg = self.cfg
         dev, dt = self.embed.device, self.embed.dtype
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "kv": (torch.zeros(shape, dtype=dt, device=dev),
-                   torch.zeros(shape, dtype=dt, device=dev)),
-        }
+        state: Dict[str, Any] = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        if not self.is_ssm:
+            shape = (cfg.n_layers, *kv_shape)
+            state["kv"] = (torch.zeros(shape, dtype=dt, device=dev),
+                           torch.zeros(shape, dtype=dt, device=dev))
+            return state
+        one = mamba_state_init(cfg, batch, dt, dev)
+        state["ssm"] = {k: v[None].repeat(cfg.n_layers, *([1] * v.dim()))
+                        for k, v in one.items()}
+        n_calls = sum(self._shared_after(i) for i in range(cfg.n_layers))
+        if n_calls:
+            shape = (n_calls, *kv_shape)
+            state["shared_kv"] = (torch.zeros(shape, dtype=dt, device=dev),
+                                  torch.zeros(shape, dtype=dt, device=dev))
+        return state
 
     @torch.no_grad()
     def decode_step(self, state: Dict[str, Any], tokens: Tensor):
@@ -200,8 +345,11 @@ class LM(nn.Module):
         ``state`` are updated in place; the returned state shares them."""
         cfg = self.cfg
         pos = state["pos"]
-        ks, vs = state["kv"]
         x = self._embed(tokens)
+        if self.is_ssm:
+            x = self._ssm_decode(state, x, pos)
+            return self.logits(rms_norm(x, self.final_norm)), {**state, "pos": pos + 1}
+        ks, vs = state["kv"]
         for i in range(cfg.n_layers):
             p = self.blocks.layer(i)
             h, _ = attn_decode_apply(
@@ -211,3 +359,26 @@ class LM(nn.Module):
             x = self._block_tail(p, x, h)
         hidden = rms_norm(x, self.final_norm)
         return self.logits(hidden), {**state, "pos": pos + 1}
+
+    def _ssm_decode(self, state: Dict[str, Any], x: Tensor, pos: Tensor) -> Tensor:
+        """JAX's ``_ssm_decode``, writing each layer's new SSM state and conv
+        window, and each shared-block call's new K/V, into ``state`` in place."""
+        cfg = self.cfg
+        hs, convs = state["ssm"]["h"], state["ssm"]["conv"]
+        shared_kv = state.get("shared_kv")
+        inv = 0
+        for i in range(cfg.n_layers):
+            p = self.blocks.layer(i)
+            h, new = mamba_decode_step(cfg, p["mamba"], rms_norm(x, p["ln1"]),
+                                       {"h": hs[i], "conv": convs[i]})
+            hs[i] = new["h"]
+            convs[i] = new["conv"]
+            x = x + h
+            if shared_kv is not None and self._shared_after(i):
+                sp = self.shared.weights()
+                h, _ = attn_decode_apply(cfg, sp["attn"], rms_norm(x, sp["ln1"]),
+                                         (shared_kv[0][inv], shared_kv[1][inv]), pos)
+                x = x + h
+                x = x + mlp_apply(cfg, sp["mlp"], rms_norm(x, sp["ln2"]))
+                inv += 1
+        return x

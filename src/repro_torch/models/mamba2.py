@@ -1,0 +1,202 @@
+"""Mamba-2 (SSD, state-space duality) block: plain functions on tensors.
+
+The port of ``repro.models.mamba2``.  Prefill runs the chunked SSD
+algorithm: a quadratic intra-chunk block plus a linear inter-chunk
+recurrence over the f32 (B, heads, head_dim, state) tensor.  Which of two
+paths runs it follows ``cfg.attn_impl``, as attention does
+(``layers._kernel_impl``):
+
+  * the kernel (``pallas``, or ``auto`` on a CUDA tensor): ``kernels.ops.ssd``,
+    whose intra-chunk block is the hand-written CUDA kernel;
+  * otherwise ``ssd_chunked`` below, the plain version.
+
+Decode is the O(1)-per-token recurrent form over that state plus a rolling
+window of the last W-1 conv inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops as kops
+from .config import ModelConfig
+from .layers import _kernel_impl, _normal, _project, rms_norm
+
+Tensor = torch.Tensor
+
+
+def check_prompt_len(cfg: ModelConfig, S: int) -> None:
+    """Raises unless the chunked SSD takes a prompt of S tokens: at most one
+    chunk, or a whole number of chunks (``kernels.ops.chunk_len``)."""
+    kops.chunk_len(S, cfg.ssm_chunk)
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+def mamba_init(cfg: ModelConfig, generator: torch.Generator, dtype, device) -> Dict[str, Tensor]:
+    """The reference's shapes and scales; A_log, D and dt_bias are f32 in
+    any model type."""
+    D, di, N, nh, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                       cfg.ssm_conv_width)
+    f32 = dict(dtype=torch.float32, device=device)
+    # in_proj emits [z (di), x (di), B (N), C (N), dt (nh)]
+    return {
+        "in_proj": _normal((D, 2 * di + 2 * N + nh), D ** -0.5, generator, dtype, device),
+        "conv_w": _normal((W, di + 2 * N), W ** -0.5, generator, dtype, device),
+        "conv_b": torch.zeros((di + 2 * N,), dtype=dtype, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
+        "D": torch.ones((nh,), **f32),
+        "dt_bias": torch.log(torch.expm1(torch.full((nh,), 1e-2, **f32))),
+        "norm": torch.zeros((di,), dtype=dtype, device=device),
+        "out_proj": _normal((di, D), di ** -0.5, generator, dtype, device),
+    }
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: Tensor):
+    di, N, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    return torch.split(zxbcdt, [di, di + 2 * N, nh], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Chunked SSD forward (the plain version)
+# --------------------------------------------------------------------------
+def _segsum(a: Tensor) -> Tensor:
+    """a: (..., T) log decays -> (..., T, T) lower-triangular segment sums."""
+    T = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    i = torch.arange(T, device=a.device)
+    return torch.where(i[:, None] >= i[None, :], diff, -torch.inf)
+
+
+def ssd_chunked(
+    x: Tensor,  # (B, S, nh, hd), already multiplied by dt
+    a: Tensor,  # (B, S, nh) log decay dt * A (negative)
+    Bm: Tensor,  # (B, S, N)
+    Cm: Tensor,  # (B, S, N)
+    chunk: int,
+    h0: Optional[Tensor] = None,  # (B, nh, hd, N)
+) -> Tuple[Tensor, Tensor]:
+    """Returns (y (B, S, nh, hd) in x's type, final state (B, nh, hd, N) f32).
+    The products take their operands in f32, as JAX's einsums promote the
+    bf16 inputs against the f32 decays."""
+    B_, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    Q = kops.chunk_len(S, chunk)
+    nC = S // Q
+    xc = x.float().reshape(B_, nC, Q, nh, hd)
+    ac = a.float().reshape(B_, nC, Q, nh).permute(0, 3, 1, 2)  # (B, nh, nC, Q)
+    Bc = Bm.float().reshape(B_, nC, Q, N)
+    Cc = Cm.float().reshape(B_, nC, Q, N)
+    a_cumsum = torch.cumsum(ac, dim=-1)
+
+    # 1. intra-chunk (diagonal blocks): quadratic within the chunk.
+    L = torch.exp(_segsum(ac))  # (B, nh, nC, Q, Q)
+    scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    y_diag = torch.einsum("bcls,bhcls,bcshp->bclhp", scores, L, xc)
+
+    # 2. per-chunk input -> end-of-chunk state contribution.
+    decay_states = torch.exp(a_cumsum[..., -1:] - a_cumsum)  # (B, nh, nC, Q)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, decay_states, xc)
+
+    # 3. inter-chunk recurrence, in f32 whatever the compute type.
+    chunk_decay = torch.exp(a_cumsum[..., -1])  # (B, nh, nC)
+    h = (torch.zeros((B_, nh, hd, N), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    h_ins = []
+    for c in range(nC):
+        h_ins.append(h)  # the state entering chunk c
+        h = h * chunk_decay[:, :, c, None, None] + states[:, c]
+
+    # 4. state -> output within each chunk.
+    state_decay_out = torch.exp(a_cumsum)  # (B, nh, nC, Q)
+    y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, torch.stack(h_ins, dim=1),
+                         state_decay_out)
+    y = (y_diag + y_off).reshape(B_, S, nh, hd).to(x.dtype)
+    return y, h
+
+
+def _conv1d(xBC: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """Depthwise causal conv of width W: (B, S, C) with (W, C) filters.  The
+    taps are added one after another in the input type, as JAX adds them."""
+    W, S = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, W - 1, 0))
+    out = pad[:, 0:S, :] * w[0]
+    for i in range(1, W):
+        out = out + pad[:, i : i + S, :] * w[i]
+    return out + b
+
+
+def mamba_apply(
+    cfg: ModelConfig,
+    p,
+    x: Tensor,
+    h0: Optional[Tensor] = None,
+    *,
+    return_conv_tail: bool = False,
+):
+    """Full-sequence forward.  x: (B, S, D) -> (B, S, D), final ssm state;
+    with ``return_conv_tail`` also the last W-1 pre-conv activations, which
+    seed the decode's rolling conv window."""
+    B, S, D = x.shape
+    di, N, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    zxbcdt = _project(x, p["in_proj"])
+    z, xBC_pre, dt = _split_proj(cfg, zxbcdt)
+    xBC = F.silu(_conv1d(xBC_pre, p["conv_w"], p["conv_b"]))
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, nh)
+    A = -torch.exp(p["A_log"])  # (nh,)
+    xh = xs.reshape(B, S, nh, hd)
+    ssd = kops.ssd if _kernel_impl(cfg, x) else ssd_chunked
+    y, h = ssd(xh * dt[..., None].to(xh.dtype), dt * A, Bm, Cm, cfg.ssm_chunk, h0)
+    y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
+    y = y.reshape(B, S, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    out = _project(y, p["out_proj"]).to(x.dtype)
+    if return_conv_tail:
+        W = cfg.ssm_conv_width
+        return out, h, xBC_pre[:, S - (W - 1) :, :]
+    return out, h
+
+
+# --------------------------------------------------------------------------
+# Recurrent decode (O(1) per token)
+# --------------------------------------------------------------------------
+def mamba_state_init(cfg: ModelConfig, batch: int, dtype, device) -> Dict[str, Tensor]:
+    di, N, nh, hd, W = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                        cfg.ssm_conv_width)
+    return {
+        "h": torch.zeros((batch, nh, hd, N), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, W - 1, di + 2 * N), dtype=dtype, device=device),
+    }
+
+
+def mamba_decode_step(
+    cfg: ModelConfig, p, x: Tensor, state: Dict[str, Tensor]
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, 1, D) -> (B, 1, D) and the new state (fresh tensors; ``state``
+    is only read)."""
+    B = x.shape[0]
+    di, N, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    zxbcdt = _project(x, p["in_proj"])[:, 0]  # (B, E)
+    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    window = torch.cat([state["conv"], xBC[:, None, :]], dim=1)  # (B, W, C)
+    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
+    xBC = F.silu(conv_out)
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, nh)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt * A)  # (B, nh)
+    xh = xs.reshape(B, nh, hd)
+    # the outer product dt*x (x) B in the input type, then f32, as in JAX
+    dBx = ((dt[..., None].to(xh.dtype) * xh)[..., None] * Bm[:, None, None, :]).float()
+    h = state["h"].float() * dA[..., None, None] + dBx
+    y = torch.matmul(h, Cm.float()[:, None, :, None])[..., 0]  # (B, nh, hd)
+    y = y.to(x.dtype) + xh * p["D"][None, :, None].to(xh.dtype)
+    y = rms_norm(y.reshape(B, di) * F.silu(z), p["norm"])
+    out = _project(y, p["out_proj"]).to(x.dtype)[:, None, :]
+    return out, {"h": h, "conv": window[:, 1:, :]}

@@ -57,15 +57,42 @@ def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     return model
 
 
-def state_from_jax(tree: Mapping[str, Any], device="cuda") -> Dict[str, Any]:
-    """A JAX dense decode state {"pos", "kv": (k, v)} (as numpy) as the
-    port's decode state on ``device``."""
-    if set(tree) != {"pos", "kv"}:
-        raise KeyError(f"decode state keys {sorted(tree)}, expected ['kv', 'pos']")
-    k, v = tree["kv"]
+def _kv_from_jax(kv, name: str, device):
+    k, v = kv
     if np.shape(k) != np.shape(v) or len(np.shape(k)) != 5:
-        raise ValueError(f"KV caches must both be (L, B, S, K, hd), got {np.shape(k)} {np.shape(v)}")
+        raise ValueError(f"{name} caches must both be (n, B, S, K, hd), got "
+                         f"{np.shape(k)} {np.shape(v)}")
+    return to_tensor(k).to(device), to_tensor(v).to(device)
+
+
+# The decode state's keys in each family: dense, SSM, hybrid.
+_STATE_KEYS = ({"pos", "kv"}, {"pos", "ssm"}, {"pos", "ssm", "shared_kv"})
+
+
+def state_from_jax(tree: Mapping[str, Any], device="cuda") -> Dict[str, Any]:
+    """A JAX decode state (as numpy) as the port's decode state on
+    ``device``: dense ``{"pos", "kv": (k, v)}``, SSM ``{"pos", "ssm": {"h",
+    "conv"}}``, hybrid the SSM keys plus ``"shared_kv": (k, v)``."""
+    if set(tree) not in _STATE_KEYS:
+        raise KeyError(f"decode state keys {sorted(tree)}, expected one of "
+                       f"{[sorted(k) for k in _STATE_KEYS]}")
     pos = to_tensor(np.asarray(tree["pos"], np.int32))
-    if pos.shape != (np.shape(k)[1],):
-        raise ValueError(f"pos {tuple(pos.shape)} does not match batch {np.shape(k)[1]}")
-    return {"pos": pos.to(device), "kv": (to_tensor(k).to(device), to_tensor(v).to(device))}
+    state: Dict[str, Any] = {"pos": pos.to(device)}
+    if "kv" in tree:
+        state["kv"] = _kv_from_jax(tree["kv"], "KV", device)
+        batch = state["kv"][0].shape[1]
+    else:
+        ssm = tree["ssm"]
+        if set(ssm) != {"h", "conv"}:
+            raise KeyError(f"ssm state keys {sorted(ssm)}, expected ['conv', 'h']")
+        h, conv = to_tensor(ssm["h"]), to_tensor(ssm["conv"])
+        if h.dim() != 5 or conv.dim() != 4 or h.shape[:2] != conv.shape[:2]:
+            raise ValueError(f"ssm state must be h (L, B, nh, hd, N) and conv (L, B, W-1, C), "
+                             f"got {tuple(h.shape)} {tuple(conv.shape)}")
+        state["ssm"] = {"h": h.to(device), "conv": conv.to(device)}
+        batch = h.shape[1]
+        if "shared_kv" in tree:
+            state["shared_kv"] = _kv_from_jax(tree["shared_kv"], "shared KV", device)
+    if pos.shape != (batch,):
+        raise ValueError(f"pos {tuple(pos.shape)} does not match batch {batch}")
+    return state

@@ -5,7 +5,10 @@ imports no jax, so it runs on a machine with torch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances as tests/kernels/test_kernels.py: f32 2e-4, bf16 3e-2.
+Tolerances as tests/kernels/test_kernels.py: f32 2e-4, bf16 3e-2; but the
+SSD kernel's f32 outputs from bf16 inputs are held at 1e-3, since its
+products are exact and only the order of its f32 sums differs from the
+plain version (1.2e-4 max abs at mamba2-2.7b's shape on an H100).
 """
 
 import numpy as np
@@ -13,15 +16,17 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.models.mamba2 import ssd_chunked
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+SSD_TOL = {"float32": 2e-4, "bfloat16": 1e-3}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 pytestmark = pytest.mark.cuda
 
 
-def assert_close(got, want, dtype):
+def assert_close(got, want, dtype, tol=TOL):
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
-                               rtol=TOL[dtype], atol=TOL[dtype])
+                               rtol=tol[dtype], atol=tol[dtype])
 
 
 @pytest.fixture
@@ -78,9 +83,74 @@ class TestKernelsOnCard:
         assert_close(got, want, dtype)
 
 
+def ssd_inputs(cuda, B, S, nh, hd, N, td, seed=2):
+    """x (B,S,nh,hd); a (B,S,nh) f32, negative; B and C as the strided column
+    slices of an xBC-like (B, S, nh*hd + 2N) tensor, as the model hands them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(B, S, nh, hd, generator=g, device=cuda).to(td)
+    a = -torch.rand(B, S, nh, generator=g, device=cuda) * 0.2
+    xbc = (torch.randn(B, S, nh * hd + 2 * N, generator=g, device=cuda) * 0.3).to(td)
+    return x, a, xbc[..., nh * hd : nh * hd + N], xbc[..., nh * hd + N :]
+
+
+class TestSSDOnCard:
+    """The SSD intra-chunk kernel against its plain version, and ops.ssd
+    against the model's plain ssd_chunked, on the card."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,S,nh,hd,N,Q", [
+        (1, 1024, 4, 64, 128, 256),  # mamba2-2.7b's chunk and widths, fewer heads
+        (2, 512, 4, 64, 64, 256),  # zamba2-1.2b's state
+        (2, 64, 3, 16, 16, 16),  # the smoke configs
+        (1, 96, 2, 16, 128, 32),
+        (1, 128, 2, 64, 16, 64),
+        (2, 100, 3, 64, 128, 100),  # a prompt shorter than the model's chunk
+        (2, 200, 3, 64, 64, 100),
+        (2, 3, 3, 64, 128, 1),
+    ])
+    def test_intra_chunk(self, cuda, dtype, B, S, nh, hd, N, Q):
+        x, a, b, c = ssd_inputs(cuda, B, S, nh, hd, N, DTYPES[dtype])
+        n = ops.LAUNCHES["ssd_intra_chunk"]
+        got = ops.ssd_intra_chunk(x, a, b, c, chunk=Q)
+        assert ops.LAUNCHES["ssd_intra_chunk"] == n + 1
+        nC = S // Q
+        want = ref.ssd_intra_chunk_ref(
+            x.reshape(B, nC, Q, nh, hd).permute(0, 3, 1, 2, 4),
+            a.reshape(B, nC, Q, nh).permute(0, 3, 1, 2),
+            b.reshape(B, 1, nC, Q, N).expand(B, nh, nC, Q, N),
+            c.reshape(B, 1, nC, Q, N).expand(B, nh, nC, Q, N))
+        for g_, w in zip(got, want):
+            assert g_.shape == w.shape and g_.dtype == torch.float32
+            assert_close(g_, w, dtype, SSD_TOL)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("S", [512, 100, 1])  # whole chunks; shorter than one
+    def test_ops_ssd_with_h0(self, cuda, dtype, S):
+        x, a, b, c = ssd_inputs(cuda, 2, S, 8, 64, 64, DTYPES[dtype], seed=3)
+        g = torch.Generator(device=cuda).manual_seed(4)
+        h0 = torch.randn(2, 8, 64, 64, generator=g, device=cuda) * 0.5
+        y, h = ops.ssd(x, a, b, c, 128, h0)
+        wy, wh = ssd_chunked(x, a, b, c, 128, h0)
+        assert y.dtype == x.dtype and h.dtype == torch.float32
+        assert_close(y, wy, dtype)
+        assert_close(h, wh, dtype, SSD_TOL)
+
+    def test_unsupported_sizes_raise(self, cuda):
+        x, a, b, c = ssd_inputs(cuda, 1, 64, 2, 32, 16, torch.float32)
+        with pytest.raises(ValueError, match="head_dim 32"):
+            ops.ssd_intra_chunk(x, a, b, c, chunk=16)
+        x, a, b, c = ssd_inputs(cuda, 1, 512, 2, 64, 16, torch.float32)
+        with pytest.raises(ValueError, match="chunks of 1 to 256"):
+            ops.ssd_intra_chunk(x, a, b, c, chunk=512)
+
+
 def test_unaligned_rows_raise(cuda):
     x = torch.randn(1, 8, 2, 161, device=cuda, dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="aligned"):
         ops.flash_attention(x, x, x, scale=0.1)
     with pytest.raises(ValueError, match="aligned"):
         ops.decode_attention(x[:, :1], x, x, torch.tensor([8], device=cuda), scale=0.1)
+    xbc = torch.randn(1, 64, 2 * 64 + 2 * 16 + 1, device=cuda, dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        ops.ssd_intra_chunk(xbc[..., :128].unflatten(-1, (2, 64)), torch.zeros(1, 64, 2,
+                            device=cuda), xbc[..., 128:144], xbc[..., 144:], chunk=16)

@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX Engine, on the CPU.
 
 Greedy generation on weights bridged from a JAX ``init`` emits the JAX
-Engine's tokens.  Also, as tests/serve/test_engine.py checks the JAX
+Engine's tokens, for the dense and the SSM/hybrid smoke configs (the SSM
+ones on prompts of two smoke chunks, so the inter-chunk recurrence runs).  Also, as tests/serve/test_engine.py checks the JAX
 engine: prefill lands in the state that stepwise decode reaches, EOS stops
 generation, greedy is deterministic; and temperature sampling (which cannot
 match ``jax.random`` token for token) gives tokens of the right shape and
@@ -34,19 +35,27 @@ def setup(arch, B=2, S=8, seed=0):
     return jcfg, jparams, model, tokens
 
 
-@pytest.mark.parametrize("arch", ["stablelm_12b", "gemma2_2b"])
+SSM_ARCHS = ["mamba2_2p7b", "zamba2_1p2b"]
+
+
+def prompt_len(arch, dense_len):
+    """Two chunks of the smoke SSM chunk (16) for the SSM families."""
+    return 32 if arch in SSM_ARCHS else dense_len
+
+
+@pytest.mark.parametrize("arch", ["stablelm_12b", "gemma2_2b", *SSM_ARCHS])
 def test_greedy_tokens_match_jax_engine(arch):
-    jcfg, jparams, model, tokens = setup(arch, B=3)
-    want = JaxEngine(jcfg, jparams, max_len=32).generate({"tokens": jnp.asarray(tokens)}, 6)
-    got = Engine(model, max_len=32, device="cpu").generate(
+    jcfg, jparams, model, tokens = setup(arch, B=3, S=prompt_len(arch, 8))
+    want = JaxEngine(jcfg, jparams, max_len=48).generate({"tokens": jnp.asarray(tokens)}, 6)
+    got = Engine(model, max_len=48, device="cpu").generate(
         {"tokens": torch.from_numpy(tokens)}, 6)
     assert got.steps == want.steps == 6
     np.testing.assert_array_equal(got.tokens, want.tokens)
 
 
-@pytest.mark.parametrize("arch", ["stablelm_12b", "gemma2_2b"])
+@pytest.mark.parametrize("arch", ["stablelm_12b", "gemma2_2b", *SSM_ARCHS])
 def test_prefill_matches_stepwise_decode(arch):
-    _, _, model, tokens = setup(arch, S=16)
+    _, _, model, tokens = setup(arch, S=prompt_len(arch, 16))
     B, S = tokens.shape
     tok = torch.from_numpy(tokens)
     logits_p, state_p = make_prefill_step(model, max_len=S + 4)({"tokens": tok})

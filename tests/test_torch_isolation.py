@@ -4,7 +4,8 @@
   jax nor any module of ``repro`` (checked in a fresh interpreter).
 * The port's copy of each config equals the JAX package's, field for field.
 * Entry points asked for no device try CUDA, and raise where it is absent.
-* ``attn_impl="pallas"`` (the hand-written kernels) raises for CPU tensors.
+* ``attn_impl="pallas"`` (the hand-written kernels) raises for CPU tensors,
+  in attention and in the Mamba-2 block.
 """
 
 import dataclasses
@@ -21,7 +22,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import LM
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2
 from repro_torch.serve import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -85,3 +86,13 @@ def test_pallas_impl_raises_on_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         layers.attn_decode_apply(cfg, p, x[:, :1], (cache, cache.clone()),
                                  torch.tensor([2], dtype=torch.int32))
+
+
+def test_pallas_impl_raises_on_cpu_ssm():
+    cfg = get_smoke_config("mamba2_2p7b").replace(dtype="float32")
+    model = LM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    p = model.blocks.layer(0)["mamba"]
+    x = torch.randn(1, 32, cfg.d_model)
+    mamba2.mamba_apply(cfg, p, x)  # the plain path runs
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mamba2.mamba_apply(cfg.replace(attn_impl="pallas"), p, x)

@@ -1,11 +1,14 @@
-"""The port's attention kernels and their plain versions against the JAX package.
+"""The port's kernels' plain versions and ``ops`` against the JAX package.
 
 On the CPU the plain versions (``repro_torch.kernels.ref``) are held against
 JAX's ``kernels/ref.py`` and against the Pallas kernels run in interpret
 mode, over the shape sweeps of tests/kernels/test_kernels.py plus the head
-size 160 of stablelm-12b and ragged lengths (which Pallas cannot tile, so
-those go against ``ref.py`` only).  The ``ops`` wrappers, in the model's
-layout, are held against ``repro.kernels.ops`` with ``use_pallas=False``.
+size 160 of stablelm-12b, ragged lengths (which Pallas cannot tile, so
+those go against ``ref.py`` only) and the SSD chunk of the full Mamba-2
+configs (Q=256, hd=64, N=128).  The ``ops`` wrappers, in the model's
+layout, are held against ``repro.kernels.ops`` (attention with
+``use_pallas=False``; the SSD with the Pallas kernel in interpret mode) and
+``ops.ssd`` also against ``repro.models.mamba2.ssd_chunked``.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_cuda.py.
@@ -22,15 +25,17 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention_bkh
 from repro.kernels.flash_attention import flash_attention_bhsd
+from repro.kernels.ssd_scan import ssd_intra_chunk as jax_ssd_intra_chunk
+from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import ops, ref
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def pair(rng, shape, dtype):
+def pair(rng, shape, dtype, scale=1.0):
     """The same values as a JAX array and a torch tensor of ``dtype``."""
-    x = rng.standard_normal(shape).astype(np.float32)
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
     jd, td = DTYPES[dtype]
     return jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
 
@@ -160,4 +165,87 @@ class TestOpsLayout:
         x = torch.randn(1, 8, 2, 16)
         ops.flash_attention(x, x, x, scale=0.25)
         ops.decode_attention(x[:, :1], x, x, torch.tensor([8]), scale=0.25)
+        ops.ssd(x, -x[..., 0].abs(), x[:, :, 0], x[:, :, 1], chunk=4)
         assert ops.LAUNCHES == before
+
+
+def ssd_inputs(rng, B, S, nh, hd, N, dtype):
+    """Model-layout SSD inputs as (JAX, torch) pairs: x (B,S,nh,hd), the log
+    decays a (B,S,nh) f32 (negative), B and C (B,S,N) scaled by 0.3, as
+    tests/kernels/test_kernels.py draws them."""
+    x = pair(rng, (B, S, nh, hd), dtype)
+    a_np = (-np.abs(rng.standard_normal((B, S, nh))) * 0.1).astype(np.float32)
+    a = (jnp.asarray(a_np), torch.from_numpy(a_np))
+    return x, a, pair(rng, (B, S, N), dtype, 0.3), pair(rng, (B, S, N), dtype, 0.3)
+
+
+def tpu_layout(x, a, Bm, Cm, Q):
+    """Model layout -> the Pallas kernel's (B, nh, nC, Q, ...) layout, B and
+    C copied to every head as JAX's ops.ssd does."""
+    B, S, nh, hd = x.shape
+    N, nC = Bm.shape[-1], S // Q
+    return (x.reshape(B, nC, Q, nh, hd).transpose(0, 3, 1, 2, 4),
+            a.reshape(B, nC, Q, nh).transpose(0, 3, 1, 2),
+            jnp.broadcast_to(Bm.reshape(B, 1, nC, Q, N), (B, nh, nC, Q, N)),
+            jnp.broadcast_to(Cm.reshape(B, 1, nC, Q, N), (B, nh, nC, Q, N)))
+
+
+class TestSSDIntraChunk:
+    # (B, nh, nC, Q, hd, N): tests/kernels/test_kernels.py's, and the chunk of
+    # the full mamba2-2.7b config.
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,nh,nC,Q,hd,N", [
+        (2, 3, 4, 32, 16, 8), (1, 2, 2, 64, 64, 128), (1, 2, 1, 256, 64, 128)])
+    def test_ref_matches_jax(self, dtype, B, nh, nC, Q, hd, N):
+        rng = np.random.default_rng(6)
+        jx, x = pair(rng, (B, nh, nC, Q, hd), dtype)
+        a_np = (-np.abs(rng.standard_normal((B, nh, nC, Q))) * 0.1).astype(np.float32)
+        ja, a = jnp.asarray(a_np), torch.from_numpy(a_np)
+        (jb, b), (jc, c) = (pair(rng, (B, nh, nC, Q, N), dtype, 0.3) for _ in range(2))
+        got = ref.ssd_intra_chunk_ref(x, a, b, c)
+        assert all(t.dtype == torch.float32 for t in got)
+        for g, w_ref, w_pallas in zip(got, jref.ssd_intra_chunk_ref(jx, ja, jb, jc),
+                                      jax_ssd_intra_chunk(jx, ja, jb, jc)):
+            assert tuple(g.shape) == w_ref.shape
+            assert_close(g, w_ref, dtype)
+            assert_close(g, w_pallas, dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_ops_layout(self, dtype):
+        """ops.ssd_intra_chunk in the model's layout, B and C by batch only,
+        gives the Pallas kernel's three tensors."""
+        rng = np.random.default_rng(7)
+        (jx, x), (ja, a), (jb, b), (jc, c) = ssd_inputs(rng, 2, 64, 3, 16, 16, dtype)
+        got = ops.ssd_intra_chunk(x, a, b, c, chunk=32)
+        for g, w in zip(got, jax_ssd_intra_chunk(*tpu_layout(jx, ja, jb, jc, 32))):
+            assert tuple(g.shape) == w.shape
+            assert_close(g, w, dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("with_h0", [False, True], ids=["h0_none", "h0"])
+    def test_ops_ssd_matches_ssd_chunked(self, dtype, with_h0):
+        """ops.ssd (intra-chunk block + the recurrence glue) == the model's
+        ssd_chunked: y in x's type, the final state in f32."""
+        rng = np.random.default_rng(8)
+        (jx, x), (ja, a), (jb, b), (jc, c) = ssd_inputs(rng, 2, 128, 2, 16, 16, dtype)
+        jh0, h0 = pair(rng, (2, 2, 16, 16), "float32") if with_h0 else (None, None)
+        y, h = ops.ssd(x, a, b, c, chunk=32, h0=h0)
+        wy, wh = jax_ssd_chunked(jx, ja, jb, jc, 32, jh0)
+        assert y.dtype == x.dtype and h.dtype == torch.float32
+        assert_close(y, wy, dtype)
+        assert_close(h, wh, dtype)
+
+    def test_ops_ssd_matches_jax_pallas_ssd(self):
+        """... and JAX's own ops.ssd with the Pallas kernel in interpret mode
+        (which returns the state in x's type, here f32)."""
+        rng = np.random.default_rng(9)
+        (jx, x), (ja, a), (jb, b), (jc, c) = ssd_inputs(rng, 2, 128, 2, 16, 8, "float32")
+        y, h = ops.ssd(x, a, b, c, chunk=32)
+        wy, wh = jops.ssd(jx, ja, jb, jc, chunk=32, use_pallas=True, interpret=True)
+        assert_close(y, wy, "float32")
+        assert_close(h, wh, "float32")
+
+    def test_ragged_sequence_raises(self):
+        x = torch.zeros(1, 40, 2, 16)
+        with pytest.raises(ValueError, match="multiple"):
+            ops.ssd(x, x[..., 0], x[:, :, 0], x[:, :, 0], chunk=16)
