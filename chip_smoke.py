@@ -6,7 +6,9 @@
 Phases, each of which fails the run on any fault:
 
 1. Device and toolchain: the card's name and power limit, the torch, CUDA
-   and nvcc versions; builds the CUDA kernels from ``src/repro_torch/csrc``.
+   and nvcc versions; builds the CUDA kernels from ``src/repro_torch/csrc``
+   and prints each ``flash_prefill`` kernel's registers, spills (from
+   ptxas's report) and shared memory.
 2. Kernels: holds each hand-written kernel against its plain PyTorch version
    on the card at the main paths' shapes (and at a window + softcap case, a
    ragged-S case, other head sizes, prompts shorter than an SSD chunk and
@@ -345,6 +347,10 @@ def kernel_phase(B=4, S=512, H=32, K=8, hd=160, gen_steps=32):
         prefill_case(gen, 2, 333, 8, 2, 160, f32),  # ragged S
         prefill_case(gen, 2, 333, 8, 2, 160, bf16),
         prefill_case(gen, 1, 100, 4, 2, 160, f32, Sk=333, causal=False),  # Sq != Sk
+        prefill_case(gen, 1, 100, 4, 2, 160, bf16, Sk=333, causal=False),
+        prefill_case(gen, 2, 300, 10, 2, 128, bf16),  # q_per_kv 5, llama4-scout's grouping
+        prefill_case(gen, 2, 300, 24, 2, 128, bf16),  # q_per_kv 12, starcoder2-15b's
+        prefill_case(gen, 2, 300, 24, 2, 128, f32),
         decode_case(gen, 3, 77, 4, 4, 160, f32, [77, 1, 40]),
         decode_case(gen, 64, 100, 8, 8, 64, bf16, [100, 1, 64, 65] * 16),  # no split
     ]
@@ -362,6 +368,31 @@ def kernel_phase(B=4, S=512, H=32, K=8, hd=160, gen_steps=32):
     for row in [*main.values(), *extra]:
         log("kernel check:", json.dumps(row))
     return main
+
+
+def prefill_resources():
+    """Registers, spills and static shared memory (ptxas's report of the
+    build) and dynamic shared memory (the library's own count) of every
+    ``flash_prefill`` kernel."""
+    import re
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    rows = []
+    for entry in _build.resources():
+        m = re.search(r"(flash_prefill_[a-z0-9]+_kernel)", entry["name"])
+        if not m:
+            continue
+        args = _build.template_args(entry["name"])
+        dtype = 0 if m.group(1) == "flash_prefill_f32_kernel" else 1
+        rows.append(dict(kernel=m.group(1), hd=args[0],
+                         softcap=bool(args[1]) if len(args) > 1 else None,
+                         registers=entry["registers"], spill_store_bytes=entry["spill_stores"],
+                         spill_load_bytes=entry["spill_loads"], static_smem_bytes=entry["smem"],
+                         dynamic_smem_bytes=lib.repro_flash_prefill_smem(dtype, args[0])))
+    if not rows:
+        raise AssertionError("ptxas reported no flash_prefill kernel")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -644,6 +675,8 @@ def main() -> int:
     log(subprocess.run([_build.nvcc_path(), "--version"], check=True, capture_output=True,
                        text=True).stdout.strip().splitlines()[-1])
     log(f"build: kernels built in {_build.timed_build():.1f} s")
+    for row in prefill_resources():
+        log("ptxas flash_prefill:", json.dumps(row))
 
     checked = {**kernel_phase(), **ssd_phase()}
     paths = {arch: slice_phase(card, arch, spec) for arch, spec in SLICES.items()}

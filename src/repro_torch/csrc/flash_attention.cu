@@ -190,19 +190,55 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_f32_kernel(PrefillArgs
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulate).  Four warps,
-// 16 query rows each (a 64-row q tile), 64-key tiles.  Each warp keeps its
+// bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulate).  Eight warps
+// of 16 packed query rows each (128 rows), 64-key tiles.  Each warp keeps its
 // scores and output rows in registers in the mma accumulator layout; the
 // score accumulators become the A operand of the PV product directly.
+//
+// GQA packing: a block owns one (batch, KV head) and a tile of query
+// positions; packed row r is query head r % heads of that KV head's group at
+// position q0 + r / heads, so every K/V tile in shared memory feeds all
+// q_per_kv heads.  Rows past heads * positions (125 of 128 at q_per_kv 5,
+// 120 at 12) hold no query and are never stored.
 // ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;
-constexpr int kMmaBQ = 64;
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRows = 16 * kMmaWarps;
 constexpr int kMmaBK = 64;
+constexpr size_t kSmemPerBlock = 232448;  // the H100's 227 KB opt-in limit
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
-constexpr size_t mma_smem_bytes() {
-  // Q, then two K and two V buffers (the next tile lands while this one is used).
-  return sizeof(__nv_bfloat16) * (kMmaBQ + 4 * kMmaBK) * (HD + 8);
+__host__ __device__ constexpr size_t mma_tile_bytes(int rows) {
+  return sizeof(__nv_bfloat16) * rows * (HD + 8);  // padded rows, see LD below
+}
+
+// K/V stages in the cp.async ring: three where shared memory allows, else two.
+template <int HD>
+__host__ __device__ constexpr int mma_stages() {
+  return mma_tile_bytes<HD>(kMmaRows) + 3 * 2 * mma_tile_bytes<HD>(kMmaBK) <= kSmemPerBlock
+             ? 3
+             : 2;
+}
+
+template <int HD>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  return mma_tile_bytes<HD>(kMmaRows) + mma_stages<HD>() * 2 * mma_tile_bytes<HD>(kMmaBK);
+}
+
+// How the query rows of a KV head's group are packed into blocks.
+struct Packing {
+  int heads;      // query heads per block: min(q_per_kv, 128)
+  int positions;  // query positions per block: 128 / heads
+  int chunks;     // blocks over one group's heads (1 unless q_per_kv > 128)
+  int tiles;      // position tiles: ceil(Sq / positions)
+  int K, B;
+};
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
@@ -234,72 +270,112 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Starts copying rows [r0, r0 + rows) of a (rows, HD) tile into shared
-// memory with 16-byte cp.async; rows at or past `limit` are zero-filled.
+// Starts copying keys [k0, k0 + 64) of a (keys, HD) K or V tile into shared
+// memory with 16-byte cp.async; keys at or past `limit` are zero-filled.
 template <int HD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long row_stride, int r0, int rows,
-                                                int limit) {
+__device__ __forceinline__ void load_kv_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              long long row_stride, int k0, int limit) {
   constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kMmaThreads) {
+  for (int i = threadIdx.x; i < kMmaBK * kChunks; i += kMmaThreads) {
     const int r = i / kChunks, c = (i - r * kChunks) * 8;
-    const bool valid = r0 + r < limit;
-    cp_async_16(dst + r * (HD + 8) + c, valid ? src + (r0 + r) * row_stride + c : src, valid);
+    const bool valid = k0 + r < limit;
+    cp_async_16(dst + r * (HD + 8) + c, valid ? src + (k0 + r) * row_stride + c : src, valid);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_prefill_mma_kernel(PrefillArgs a) {
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kMmaThreads, HD <= 64 ? 2 : 1)
+    flash_prefill_mma_kernel(PrefillArgs a, Packing p) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = HD + 8;  // padded rows: the 8 rows of an ldmatrix hit distinct banks
   constexpr int NS = kMmaBK / 8;  // score n-tiles
   constexpr int NO = HD / 8;      // output n-tiles
+  constexpr int NST = mma_stages<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* K0 = Qs + kMmaBQ * LD;
-  bf16* K1 = K0 + kMmaBK * LD;
-  bf16* V0 = K1 + kMmaBK * LD;
-  bf16* V1 = V0 + kMmaBK * LD;
+  bf16* Ks = Qs + kMmaRows * LD;
+  bf16* Vs = Ks + NST * kMmaBK * LD;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kMmaBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / a.q_per_kv;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
+  // Longest work first: under a causal mask the last position tiles see the
+  // most keys, and they take the lowest block indices.
+  const int per_tile = p.chunks * p.K * p.B;
+  const int tile = p.tiles - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  int rest = static_cast<int>(blockIdx.x) % per_tile;
+  const int chunk = rest % p.chunks;
+  rest /= p.chunks;
+  const int kh = rest % p.K, b = rest / p.K;
+  const int q0 = tile * p.positions;
+  const int nh = min(p.heads, a.q_per_kv - chunk * p.heads);  // heads this block serves
+  const int h0 = kh * a.q_per_kv + chunk * p.heads;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qsb + h0 * a.qsh;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ksb + kh * a.ksh;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vsb + kh * a.vsh;
-  const int q_last = min(q0 + kMmaBQ, a.Sq) - 1;
+  // The causal limit of a row depends on its position only: the block's
+  // keys end at its last position's.
+  const int q_last = min(q0 + p.positions, a.Sq) - 1;
   const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
   const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  load_tile_async<HD>(Qs, qb, a.qss, q0, kMmaBQ, a.Sq);
-  if (k_begin < k_end) {
-    load_tile_async<HD>(K0, kb, a.kss, k_begin, kMmaBK, a.Sk);
-    load_tile_async<HD>(V0, vb, a.vss, k_begin, kMmaBK, a.Sk);
+  const int n_tiles = k_begin < k_end ? (k_end - k_begin + kMmaBK - 1) / kMmaBK : 0;
+
+  // The Q tile and the first NST - 1 K/V tiles are all requested before any
+  // wait; the Q tile rides in the first group.
+  for (int i = threadIdx.x; i < kMmaRows * (HD / 8); i += kMmaThreads) {
+    const int r = i / (HD / 8), c = (i - r * (HD / 8)) * 8;
+    const int pr = r / p.heads, j = r - pr * p.heads, qp = q0 + pr;
+    const bool valid = pr < p.positions && j < nh && qp < a.Sq;
+    cp_async_16(Qs + r * LD + c, valid ? qb + qp * a.qss + j * a.qsh + c : qb, valid);
   }
-  cp_async_commit();
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const int w_first = q0 + warp * 16, w_last = min(w_first + 15, a.Sq - 1);
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < n_tiles) {
+      load_kv_async<HD>(Ks + s * kMmaBK * LD, kb, a.kss, k_begin + s * kMmaBK, a.Sk);
+      load_kv_async<HD>(Vs + s * kMmaBK * LD, vb, a.vss, k_begin + s * kMmaBK, a.Sk);
+    }
+    cp_async_commit();
+  }
+
+  // This lane's two rows (g and g + 8 of the warp's 16) and the positions
+  // the warp's rows span.
+  const int row0 = warp * 16 + g, row1 = row0 + 8;
+  const int pr0 = row0 / p.heads, pr1 = row1 / p.heads;
+  const int qp0 = q0 + pr0, qp1 = q0 + pr1;
+  const int j0 = row0 - pr0 * p.heads, j1 = row1 - pr1 * p.heads;
+  const int w_first = q0 + warp * 16 / p.heads;
+  const int w_last = min(q0 + min((warp * 16 + 15) / p.heads, p.positions - 1), a.Sq - 1);
+  const bool w_idle = warp * 16 / p.heads >= p.positions || w_first > w_last;
+  const float scale_l2 = CAP ? a.scale / a.cap : a.scale * kLog2e;
+  const float cap_l2 = a.cap * kLog2e;
 
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int k0 = k_begin, it = 0; k0 < k_end; k0 += kMmaBK, ++it) {
-    const bf16* Kt = it & 1 ? K1 : K0;
-    const bf16* Vt = it & 1 ? V1 : V0;
-    __syncthreads();  // every warp is done with the buffers the next tile goes to
-    if (k0 + kMmaBK < k_end) {
-      load_tile_async<HD>(it & 1 ? K0 : K1, kb, a.kss, k0 + kMmaBK, kMmaBK, a.Sk);
-      load_tile_async<HD>(it & 1 ? V0 : V1, vb, a.vss, k0 + kMmaBK, kMmaBK, a.Sk);
+  for (int it = 0, stage = 0; it < n_tiles; ++it, stage = stage + 1 == NST ? 0 : stage + 1) {
+    cp_async_wait<NST - 2>();  // tile `it` (and the Q tile) have landed
+    __syncthreads();           // ... for every thread; and tile it - 1 is consumed
+    {
+      const int nxt = it + NST - 1;
+      const int ns = stage == 0 ? NST - 1 : stage - 1;  // the stage tile it - 1 used
+      if (nxt < n_tiles) {
+        load_kv_async<HD>(Ks + ns * kMmaBK * LD, kb, a.kss, k_begin + nxt * kMmaBK, a.Sk);
+        load_kv_async<HD>(Vs + ns * kMmaBK * LD, vb, a.vss, k_begin + nxt * kMmaBK, a.Sk);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the tile just requested have landed
-    __syncthreads();
+    const int k0 = k_begin + it * kMmaBK;
     // A tile wholly masked for this warp's rows adds nothing: skip its math.
-    if (w_last < w_first || (a.causal && k0 > w_last) ||
+    if (w_idle || (a.causal && k0 > w_last) ||
         (a.window > 0 && k0 + kMmaBK - 1 <= w_first - a.window))
       continue;
+    // Only a tile that straddles the diagonal, the window's edge or Sk needs
+    // the per-score compares.
+    const bool edge = k0 + kMmaBK > a.Sk || (a.causal && k0 + kMmaBK - 1 > w_first) ||
+                      (a.window > 0 && w_last - k0 >= a.window);
+    const bf16* Kt = Ks + stage * kMmaBK * LD;
+    const bf16* Vt = Vs + stage * kMmaBK * LD;
 
     float s[NS][4];
 #pragma unroll
@@ -319,17 +395,28 @@ __global__ void __launch_bounds__(kMmaThreads) flash_prefill_mma_kernel(PrefillA
       }
     }
 
+    // Scores in the log2 domain: scale * log2(e) folded into one multiply,
+    // or cap * log2(e) * tanh(scale * s / cap) with the softcap.
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = CAP ? cap_l2 * tanhf(s[n][e] * scale_l2) : s[n][e] * scale_l2;
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e < 2 ? qp0 : qp1;
+          const int kp = k0 + n * 8 + 2 * t + (e & 1);
+          const bool ok = kp < a.Sk && (!a.causal || r >= kp) &&
+                          (a.window <= 0 || r - kp < a.window);
+          if (!ok) s[n][e] = kMask;
+        }
+    }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? row0 : row1;
-        const int kp = k0 + n * 8 + 2 * t + (e & 1);
-        const bool ok = kp < a.Sk && (!a.causal || r >= kp) &&
-                        (a.window <= 0 || r - kp < a.window);
-        s[n][e] = ok ? score(s[n][e], a.scale, a.cap) : kMask;
-      }
       mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
       mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
     }
@@ -339,16 +426,16 @@ __global__ void __launch_bounds__(kMmaThreads) flash_prefill_mma_kernel(PrefillA
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = __expf(m0 - mn0), al1 = __expf(m1 - mn1);
+    const float al0 = exp2_approx(m0 - mn0), al1 = exp2_approx(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      s[n][0] = __expf(s[n][0] - mn0);
-      s[n][1] = __expf(s[n][1] - mn0);
-      s[n][2] = __expf(s[n][2] - mn1);
-      s[n][3] = __expf(s[n][3] - mn1);
+      s[n][0] = exp2_approx(s[n][0] - mn0);
+      s[n][1] = exp2_approx(s[n][1] - mn0);
+      s[n][2] = exp2_approx(s[n][2] - mn1);
+      s[n][3] = exp2_approx(s[n][3] - mn1);
       sum0 += s[n][0] + s[n][1];
       sum1 += s[n][2] + s[n][3];
     }
@@ -385,28 +472,54 @@ __global__ void __launch_bounds__(kMmaThreads) flash_prefill_mma_kernel(PrefillA
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f, inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
-  bf16* ob = static_cast<bf16*>(a.o) + b * a.osb + h * a.osh;
+  bf16* ob = static_cast<bf16*>(a.o) + b * a.osb + h0 * a.osh;
+  const bool st0 = pr0 < p.positions && j0 < nh && qp0 < a.Sq;
+  const bool st1 = pr1 < p.positions && j1 < nh && qp1 < a.Sq;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int d = n * 8 + 2 * t;
-    if (row0 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * a.oss + d) =
+    if (st0)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qp0 * a.oss + j0 * a.osh + d) =
           __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (row1 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * a.oss + d) =
+    if (st1)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qp1 * a.oss + j1 * a.osh + d) =
           __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
   }
+}
+
+// Launches a kernel of the packed schedule, one block per position tile,
+// group chunk, KV head and batch row.
+template <typename Kernel>
+cudaError_t launch_packed(Kernel kernel, size_t smem, int threads, const PrefillArgs& a, int B,
+                          int K, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  Packing p;
+  p.heads = a.q_per_kv < kMmaRows ? a.q_per_kv : kMmaRows;
+  p.positions = kMmaRows / p.heads;
+  p.chunks = (a.q_per_kv + p.heads - 1) / p.heads;
+  p.tiles = (a.Sq + p.positions - 1) / p.positions;
+  p.K = K;
+  p.B = B;
+  const long long blocks = static_cast<long long>(p.tiles) * p.chunks * K * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(a, p);
+  return cudaGetLastError();
+}
+
+template <int HD, bool CAP>
+cudaError_t launch_bf16(const PrefillArgs& a, int B, int K, cudaStream_t stream) {
+  static_assert(mma_smem_bytes<HD>() <= kSmemPerBlock, "mma tiles exceed shared memory");
+  return launch_packed(flash_prefill_mma_kernel<HD, CAP>, mma_smem_bytes<HD>(), kMmaThreads, a,
+                       B, K, stream);
 }
 
 template <int HD>
 cudaError_t launch(int dtype, const PrefillArgs& a, int B, int H, cudaStream_t stream) {
   if (dtype == kBFloat16) {
-    constexpr size_t smem = mma_smem_bytes<HD>();
-    cudaError_t err = allow_smem(flash_prefill_mma_kernel<HD>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + kMmaBQ - 1) / kMmaBQ, H, B);
-    flash_prefill_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(a);
-    return cudaGetLastError();
+    const int K = H / a.q_per_kv;
+    return a.cap > 0.f ? launch_bf16<HD, true>(a, B, K, stream)
+                       : launch_bf16<HD, false>(a, B, K, stream);
   }
   if (dtype != kFloat32) return cudaErrorInvalidValue;
   constexpr size_t smem = prefill_smem_bytes<HD>();
@@ -415,6 +528,12 @@ cudaError_t launch(int dtype, const PrefillArgs& a, int B, int H, cudaStream_t s
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, H, B);
   flash_prefill_f32_kernel<HD><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int HD>
+int smem_bytes(int dtype) {
+  if (dtype != kBFloat16) return static_cast<int>(prefill_smem_bytes<HD>());
+  return static_cast<int>(mma_smem_bytes<HD>());
 }
 
 }  // namespace
@@ -447,5 +566,20 @@ extern "C" int repro_flash_prefill(int dtype, int hd, const void* q, const void*
     case 160: return launch<160>(dtype, a, B, H, st);
     case 256: return launch<256>(dtype, a, B, H, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the kernel that serves (dtype, hd), in bytes;
+// -1 for a head size no kernel serves.
+extern "C" int repro_flash_prefill_smem(int dtype, int hd) {
+  using namespace repro;
+  switch (hd) {
+    case 16: return smem_bytes<16>(dtype);
+    case 32: return smem_bytes<32>(dtype);
+    case 64: return smem_bytes<64>(dtype);
+    case 128: return smem_bytes<128>(dtype);
+    case 160: return smem_bytes<160>(dtype);
+    case 256: return smem_bytes<256>(dtype);
+    default: return -1;
   }
 }

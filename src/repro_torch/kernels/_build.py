@@ -5,7 +5,9 @@ for ``sm_90a`` into an object file, and the objects are linked into one
 shared library with a plain C interface, loaded with ctypes.  The build
 happens at first use, into ``build/repro_torch/<hash of the sources>/`` at
 the root of the checkout, so an edit to any source rebuilds.  A failed
-build raises with nvcc's error output.
+build raises with nvcc's error output.  ptxas reports every kernel's
+registers, spills and static shared memory (``-Xptxas -v``); the report is
+kept beside the library as ``nvcc.log`` and read by ``resources``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,16 +42,17 @@ SIGNATURES = {
     + [_L] * 10
     + [_F, _I, _F, _P],
     "repro_ssd_intra_chunk": [_I, _I, _I] + [_P] * 7 + [_I] * 4 + [_L] * 10 + [_P],
+    "repro_flash_prefill_smem": [_I, _I],
 }
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
-    for path in sum(_sources(), []):
+    for path in sum(_sources(csrc), []):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())
@@ -65,7 +69,9 @@ def nvcc_path() -> str:
     return found
 
 
-def _run_all(cmds):
+def _run_all(cmds) -> str:
+    """Runs the commands in parallel; returns their joined output, or raises
+    with it if any failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
     logs, failed = [], False
@@ -75,36 +81,46 @@ def _run_all(cmds):
         failed |= p.returncode != 0
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+    return "\n".join(logs)
 
 
-def build() -> Path:
-    """Compiles the sources if this hash has not been built; returns the .so."""
-    out_dir = BUILD_ROOT / source_hash()
+def build(csrc: Path = CSRC) -> Path:
+    """Compiles the sources under ``csrc`` if their hash has not been built;
+    returns the .so."""
+    out_dir = BUILD_ROOT / source_hash(csrc)
     lib = out_dir / "librepro_torch.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    cu, _ = _sources()
+    cu, _ = _sources(csrc)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in cu]
-        _run_all([[nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src), "-o", str(obj)]
-                  for src, obj in zip(cu, objs)])
+        report = _run_all([[nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src), "-o", str(obj)]
+                           for src, obj in zip(cu, objs)])
         tmp_lib = Path(tmp) / lib.name
         _run_all([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)]])
+        (out_dir / "nvcc.log").write_text(report)
         os.replace(tmp_lib, lib)  # atomic: a concurrent builder sees all or nothing
+    return lib
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Loads a built library and declares the functions of ``SIGNATURES`` it
+    exports."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return bind(build())
 
 
 def timed_build() -> float:
@@ -112,6 +128,41 @@ def timed_build() -> float:
     t0 = time.perf_counter()
     build()
     return time.perf_counter() - t0
+
+
+def parse_ptxas(text: str) -> list:
+    """Each kernel entry of a ``-Xptxas -v`` report: its mangled name,
+    registers, spill stores and loads and static shared memory, in bytes."""
+    entries, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(name=m.group(1), registers=0, spill_stores=0, spill_loads=0, smem=0)
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return entries
+
+
+def template_args(mangled: str) -> list:
+    """The integer and bool template arguments of a mangled kernel name, in
+    order (``..._kernelILi160ELb1EEEv...`` gives [160, 1])."""
+    m = re.search(r"_kernelI(.*?)EE", mangled)
+    return [int(x) for x in re.findall(r"L[ib](\d+)E", m.group(1) + "E")] if m else []
+
+
+def resources(csrc: Path = CSRC) -> list:
+    """ptxas's report of the built kernels under ``csrc`` (see parse_ptxas)."""
+    return parse_ptxas((build(csrc).parent / "nvcc.log").read_text())
 
 
 def check(err: int, name: str) -> None:

@@ -41,19 +41,38 @@ class TestKernelsOnCard:
     """The CUDA kernels against their plain versions on the card."""
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("Sq,Sk,hd,kw", [
-        (512, 512, 160, dict()),
-        (333, 333, 160, dict()),
-        (300, 300, 256, dict(window=128, softcap=50.0)),
-        (100, 333, 64, dict(causal=False)),
-        (200, 200, 16, dict()),
-        (200, 200, 128, dict()),
+    @pytest.mark.parametrize("Sq,Sk,H,K,hd,kw", [
+        (512, 512, 8, 2, 160, dict()),
+        (333, 333, 8, 2, 160, dict()),
+        (300, 300, 8, 2, 256, dict(window=128, softcap=50.0)),
+        (100, 333, 8, 2, 64, dict(causal=False)),
+        (200, 200, 8, 2, 16, dict()),
+        (200, 200, 8, 2, 128, dict()),
+        (200, 200, 8, 2, 32, dict()),
+        # each q_per_kv of the configs: 1, 2, 5, 6, 8 and 12 query heads
+        # per KV head packed into one block's 128 rows (125 and 120 used)
+        (200, 200, 8, 8, 64, dict()),
+        (200, 200, 8, 4, 128, dict()),
+        (150, 150, 10, 2, 128, dict()),
+        (150, 150, 12, 2, 64, dict()),
+        (150, 150, 16, 2, 128, dict()),
+        (150, 150, 24, 2, 128, dict()),
+        (40, 40, 130, 1, 64, dict()),  # more heads than rows: two blocks per group
+        # short and ragged prompts
+        (1, 1, 8, 2, 160, dict()),
+        (17, 17, 8, 2, 160, dict()),
+        (64, 64, 8, 2, 64, dict()),  # one q tile, one key tile
+        (64, 64, 8, 8, 128, dict()),
+        # a window whose edge crosses packed tiles, with and without softcap
+        (300, 300, 8, 2, 128, dict(window=40)),
+        (300, 300, 12, 2, 64, dict(window=40, softcap=30.0)),
+        (333, 100, 8, 2, 64, dict(causal=False)),  # Sq > Sk
     ])
-    def test_flash_prefill(self, cuda, dtype, Sq, Sk, hd, kw):
+    def test_flash_prefill(self, cuda, dtype, Sq, Sk, H, K, hd, kw):
         td = DTYPES[dtype]
         g = torch.Generator(device=cuda).manual_seed(0)
         q, k, v = (torch.randn(s, generator=g, device=cuda).to(td)
-                   for s in [(2, Sq, 8, hd), (2, Sk, 2, hd), (2, Sk, 2, hd)])
+                   for s in [(2, Sq, H, hd), (2, Sk, K, hd), (2, Sk, K, hd)])
         n = ops.LAUNCHES["flash_prefill"]
         got = ops.flash_attention(q, k, v, scale=hd ** -0.5, **kw)
         assert ops.LAUNCHES["flash_prefill"] == n + 1

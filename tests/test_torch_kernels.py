@@ -27,7 +27,7 @@ from repro.kernels.decode_attention import decode_attention_bkh
 from repro.kernels.flash_attention import flash_attention_bhsd
 from repro.kernels.ssd_scan import ssd_intra_chunk as jax_ssd_intra_chunk
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -148,6 +148,19 @@ class TestOpsLayout:
         assert_close(got, want, dtype)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("H,K,hd", [(5, 1, 128), (6, 2, 64), (16, 2, 128), (24, 2, 128),
+                                        (8, 8, 64)])
+    def test_flash_attention_groupings(self, dtype, H, K, hd):
+        """The q_per_kv of the configs (5, 3, 8, 12, 1), which the CUDA kernel
+        packs into its 128-row blocks, through the plain version."""
+        rng = np.random.default_rng(6)
+        (jq, q), (jk, k), (jv, v) = (pair(rng, s, dtype) for s in
+                                     [(1, 70, H, hd), (1, 70, K, hd), (1, 70, K, hd)])
+        got = ops.flash_attention(q, k, v, scale=hd ** -0.5, window=33)
+        want = jops.flash_attention(jq, jk, jv, scale=hd ** -0.5, use_pallas=False, window=33)
+        assert_close(got, want, dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("S,hd,kw", [(256, 32, dict()), (545, 160, dict(window=64))])
     def test_decode_attention(self, dtype, S, hd, kw):
         rng = np.random.default_rng(5)
@@ -249,3 +262,43 @@ class TestSSDIntraChunk:
         x = torch.zeros(1, 40, 2, 16)
         with pytest.raises(ValueError, match="multiple"):
             ops.ssd(x, x[..., 0], x[:, :, 0], x[:, :, 0], chunk=16)
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN5repro12_GLOBAL__N_126flash_prefill_wgmma_kernelILi160ELb0EEEvNS0_11PrefillArgsENS0_7PackingE' for 'sm_90a'
+ptxas info    : Function properties for _ZN5repro12_GLOBAL__N_126flash_prefill_wgmma_kernelILi160ELb0EEEvNS0_11PrefillArgsENS0_7PackingE
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 392 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5repro12_GLOBAL__N_124flash_prefill_f32_kernelILi64EEEvNS0_11PrefillArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN5repro12_GLOBAL__N_124flash_prefill_f32_kernelILi64EEEvNS0_11PrefillArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 1024 bytes smem, 392 bytes cmem[0]
+"""
+
+
+class TestBuild:
+    """The build module's report parsing and per-tree hashing (no nvcc
+    needed)."""
+
+    def test_parse_ptxas(self):
+        wg, f32 = _build.parse_ptxas(PTXAS_REPORT)
+        assert "flash_prefill_wgmma_kernel" in wg["name"]
+        assert (wg["registers"], wg["spill_stores"], wg["spill_loads"], wg["smem"]) == \
+            (168, 8, 12, 0)
+        assert (f32["registers"], f32["spill_stores"], f32["spill_loads"], f32["smem"]) == \
+            (64, 0, 0, 1024)
+
+    def test_template_args(self):
+        wg, f32 = _build.parse_ptxas(PTXAS_REPORT)
+        assert _build.template_args(wg["name"]) == [160, 0]
+        assert _build.template_args(f32["name"]) == [64]
+        assert _build.template_args("_Z3foov") == []
+
+    def test_source_hash_follows_the_tree(self, tmp_path):
+        a, b, c = (tmp_path / n for n in "abc")
+        for d, text in ((a, "int x;"), (b, "int x;"), (c, "int y;")):
+            d.mkdir()
+            (d / "k.cu").write_text(text)
+        assert _build.source_hash(a) == _build.source_hash(b) != _build.source_hash(c)
+        assert _build.source_hash() not in {_build.source_hash(a), _build.source_hash(c)}
