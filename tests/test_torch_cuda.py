@@ -67,12 +67,22 @@ class TestKernelsOnCard:
         (300, 300, 8, 2, 128, dict(window=40)),
         (300, 300, 12, 2, 64, dict(window=40, softcap=30.0)),
         (333, 100, 8, 2, 64, dict(causal=False)),  # Sq > Sk
+        # q, k and v as (B, heads, S, hd) tensors seen through transposes:
+        # heads outside positions, so the threads move Q and the K/V maps
+        # order their dimensions the other way
+        (200, 200, 8, 2, 160, dict(heads_outer=True)),
+        (150, 150, 12, 2, 64, dict(heads_outer=True, window=40)),
     ])
     def test_flash_prefill(self, cuda, dtype, Sq, Sk, H, K, hd, kw):
         td = DTYPES[dtype]
         g = torch.Generator(device=cuda).manual_seed(0)
-        q, k, v = (torch.randn(s, generator=g, device=cuda).to(td)
-                   for s in [(2, Sq, H, hd), (2, Sk, K, hd), (2, Sk, K, hd)])
+        kw = dict(kw)
+        if kw.pop("heads_outer", False):
+            q, k, v = (torch.randn(s, generator=g, device=cuda).to(td).transpose(1, 2)
+                       for s in [(2, H, Sq, hd), (2, K, Sk, hd), (2, K, Sk, hd)])
+        else:
+            q, k, v = (torch.randn(s, generator=g, device=cuda).to(td)
+                       for s in [(2, Sq, H, hd), (2, Sk, K, hd), (2, Sk, K, hd)])
         n = ops.LAUNCHES["flash_prefill"]
         got = ops.flash_attention(q, k, v, scale=hd ** -0.5, **kw)
         assert ops.LAUNCHES["flash_prefill"] == n + 1

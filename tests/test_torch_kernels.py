@@ -302,3 +302,18 @@ class TestBuild:
             (d / "k.cu").write_text(text)
         assert _build.source_hash(a) == _build.source_hash(b) != _build.source_hash(c)
         assert _build.source_hash() not in {_build.source_hash(a), _build.source_hash(c)}
+
+    def test_probe_patches_the_current_kernel(self):
+        """tools/prefill_probe.py instruments a copy of the wgmma kernel at
+        anchor lines; every anchor must still be in the source."""
+        import importlib.util
+        from pathlib import Path
+
+        root = Path(__file__).resolve().parents[1]
+        spec = importlib.util.spec_from_file_location("prefill_probe",
+                                                      root / "tools" / "prefill_probe.py")
+        probe = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(probe)
+        text = (_build.CSRC / "flash_attention.cu").read_text()
+        patched = probe.patched_source(text)
+        assert patched.count("pr_record();") == 2 and "g_probe" in patched

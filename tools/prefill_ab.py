@@ -9,7 +9,8 @@ Each ``--tree NAME=DIR`` names a directory of CUDA sources (``csrc/`` of this
 checkout, or of an older commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists).  Each is built into its own library
 with ``kernels/_build.py``; each version's output at every shape is held
-against the plain version (``ref.flash_attention_ref``) before any timing.
+against the plain version (``ref.flash_attention_ref``) before any timing;
+a version that disagrees or fails to launch is reported and not timed.
 Then the versions are timed in the order given, at the main paths' shapes
 (stablelm-12b and zamba2-1.2b prefill, bf16, causal), with CUDA events as
 ``chip_smoke.time_ms`` does; the library call is timed first and last.
@@ -85,9 +86,14 @@ def main() -> int:
         want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                        scale=scale, causal=True).transpose(1, 2)
         outs = {name: torch.empty_like(q) for name in libs}
+        wrong = set()
         for name, lib in libs.items():
-            launch(lib, q, k, v, outs[name], scale)
-            err = close(outs[name], want, torch.bfloat16)
+            try:
+                launch(lib, q, k, v, outs[name], scale)
+                err = close(outs[name], want, torch.bfloat16)
+            except (AssertionError, RuntimeError) as exc:  # reported; not timed
+                wrong.add(name)
+                err = str(exc)
             rows.append(dict(shape=shape_name, tree=name, max_abs_err=err))
             print(json.dumps(rows[-1]), flush=True)
 
@@ -96,7 +102,7 @@ def main() -> int:
                                                   v.transpose(1, 2), is_causal=True,
                                                   scale=scale, enable_gqa=True)
 
-        sequence = ["library", *order, "library"]
+        sequence = ["library", *(n for n in order if n not in wrong), "library"]
         for turn, name in enumerate(sequence):
             if name == "library":
                 ms = time_ms(library, iters=args.iters)
@@ -110,7 +116,7 @@ def main() -> int:
     (out_dir / "prefill_ab.json").write_text(json.dumps(
         dict(card=card, trees=trees, order=order, ptxas=report, rows=rows), indent=1))
     print(card, flush=True)
-    return 0
+    return 1 if any(isinstance(r.get("max_abs_err"), str) for r in rows) else 0
 
 
 if __name__ == "__main__":
