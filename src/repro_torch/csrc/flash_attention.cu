@@ -261,7 +261,7 @@ struct Packing {
   int chunks;     // blocks over one group's heads (1 unless q_per_kv > 128)
   int tiles;      // position tiles: ceil(Sq / positions)
   int K, B;
-  int resident;   // blocks the card holds at once (wgmma kernel only)
+  int resident;   // blocks the card holds at once (read by the wgmma kernel)
 };
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -526,6 +526,7 @@ Packing pack(const PrefillArgs& a, int B, int K) {
   p.tiles = (a.Sq + p.positions - 1) / p.positions;
   p.K = K;
   p.B = B;
+  p.resident = 0;
   return p;
 }
 
@@ -1053,8 +1054,8 @@ int smem_bytes(int dtype) {
 
 // q (B, Sq, H, hd), k and v (B, Sk, K, hd), o (B, Sq, H, hd), each with a
 // unit stride in its last dimension and 16-byte aligned rows; strides are
-// in elements.  window <= 0
-// and cap <= 0 disable the window and the softcap.  Returns a cudaError_t.
+// in elements.  window <= 0 and cap <= 0 disable the window and the
+// softcap.  Returns a cudaError_t.
 extern "C" int repro_flash_prefill(int dtype, int hd, const void* q, const void* k,
                                    const void* v, void* o, int B, int H, int K, int Sq,
                                    int Sk, long long qsb, long long qss, long long qsh,

@@ -12,9 +12,9 @@ block's start and end (``%globaltimer``), its SM, and cycles
 (``clock64``) spent in the prologue (barrier set-up, the Q tile, the first
 K/V loads), the key loop and the epilogue (output stores issued), and within the
 loop, per computed key tile: waiting for the tile's K/V (acquire),
-releasing a stage (for the ring's one producer thread, waiting for the
-other warpgroup and issuing the next loads), waiting for S = Q K^T, the
-softmax, and waiting for O += P V.  Prints per shape: the kernel's span, the share of
+releasing the tile's stage (and, for the last warp done with it, issuing
+the stage's next loads), waiting for S = Q K^T, the softmax, and waiting
+for O += P V.  Prints per shape: the kernel's span, the share of
 SM-time covered by blocks, and the mean cycles of each phase.  The kernel
 in ``src/`` is not changed.
 """
@@ -165,8 +165,6 @@ def main() -> int:
                                       for i, f in ((5, "acquire"), (6, "release"),
                                                    (7, "qk_wait"), (8, "softmax"),
                                                    (9, "pv_wait"))},
-            producer_release_cycles_per_tile=float(rec[0::2, 6].sum()) / max(
-                float(rec[0::2, 10].sum()), 1),
             clock_hz=clock_hz)
         out[name] = summary
         print(json.dumps(summary), flush=True)
