@@ -938,8 +938,8 @@ cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, int* out) {
   return err;
 }
 
-// The driver's tensor-map encoder, reached through the runtime so that the
-// library needs no link against the driver.
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// so that the library needs no link against libcuda.
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
     void* ptr = nullptr;
@@ -955,8 +955,8 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // A 4-d map of a (B, S, heads, hd) bf16 tensor in boxes of 32 columns by
 // `heads_box` heads by `rows_box` positions, with the 64-byte swizzle; its
-// middle dimensions ordered by stride.  Returns false if the driver refuses
-// it.
+// middle dimensions ordered by stride.  Returns false if the encoder
+// refuses it.
 bool encode_map(CUtensorMap* map, int* heads_inner, const void* base, int HD, int S, int heads,
                 int B, long long sb, long long ss, long long sh, int heads_box, int rows_box) {
   const auto encode = tensor_map_encoder();

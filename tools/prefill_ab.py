@@ -16,7 +16,7 @@ Then the versions are timed in the order given, at the main paths' shapes
 ``chip_smoke.time_ms`` does; the library call is timed first and last.
 Prints one JSON line per timing and writes all of them, with the card's
 name and power limit and ptxas's report of each version's prefill kernels,
-to ``chiprun_out/prefill_ab.json``.
+to ``--out`` (``build/prefill_ab.json`` by default).
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ def main() -> int:
     ap.add_argument("--tree", action="append", required=True, help="NAME=DIR of CUDA sources")
     ap.add_argument("--order", required=True, help="comma-separated tree names, in turn")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--out", default=str(ROOT / "build" / "prefill_ab.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("prefill_ab: no CUDA device", file=sys.stderr)
@@ -111,9 +112,9 @@ def main() -> int:
                 ms = time_ms(lambda: launch(lib, q, k, v, out, scale), iters=args.iters)
             rows.append(dict(shape=shape_name, turn=turn, tree=name, ms=ms))
             print(json.dumps(rows[-1]), flush=True)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "prefill_ab.json").write_text(json.dumps(
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(
         dict(card=card, trees=trees, order=order, ptxas=report, rows=rows), indent=1))
     print(card, flush=True)
     return 1 if any(isinstance(r.get("max_abs_err"), str) for r in rows) else 0

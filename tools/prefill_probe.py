@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the wgmma ``flash_prefill`` kernel goes, block by block.
 
-    python3 tools/prefill_probe.py
+    python3 tools/prefill_probe.py [--out FILE]
 
 Copies ``src/repro_torch/csrc`` to ``build/prefill_probe/csrc``, inserts
 clock reads into that copy of the wgmma kernel (at anchor lines this script
@@ -15,12 +15,14 @@ loop, per computed key tile: waiting for the tile's K/V (acquire),
 releasing the tile's stage (and, for the last warp done with it, issuing
 the stage's next loads), waiting for S = Q K^T, the softmax, and waiting
 for O += P V.  Prints per shape: the kernel's span, the share of
-SM-time covered by blocks, and the mean cycles of each phase.  The kernel
+SM-time covered by blocks, and the mean cycles of each phase, and writes
+them to ``--out`` (``build/prefill_probe.json`` by default).  The kernel
 in ``src/`` is not changed.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import shutil
 import sys
@@ -113,6 +115,9 @@ def main() -> int:
     from prefill_ab import SHAPES, launch
     from repro_torch.kernels import _build, ref
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=str(ROOT / "build" / "prefill_probe.json"))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("prefill_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -168,10 +173,9 @@ def main() -> int:
             clock_hz=clock_hz)
         out[name] = summary
         print(json.dumps(summary), flush=True)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "prefill_probe.json").write_text(json.dumps(dict(card=card_line(), **out),
-                                                           indent=1))
+    path = Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(dict(card=card_line(), **out), indent=1))
     print(card_line(), flush=True)
     return 0
 
