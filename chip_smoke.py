@@ -7,13 +7,14 @@ Phases, each of which fails the run on any fault:
 
 1. Device and toolchain: the card's name and power limit, the torch, CUDA
    and nvcc versions; builds the CUDA kernels from ``src/repro_torch/csrc``
-   and prints each ``flash_prefill`` kernel's registers, spills (from
-   ptxas's report) and shared memory.
+   and prints each ``flash_prefill`` and ``flash_decode`` kernel's
+   registers, spills (from ptxas's report) and shared memory.
 2. Kernels: holds each hand-written kernel against its plain PyTorch version
    on the card at the main paths' shapes (and at a window + softcap case, a
    ragged-S case, other head sizes, prompts shorter than an SSD chunk and
    the smoke configs' SSD sizes), and times both, the bound and one library
-   call where there is one; holds ``ops.ssd`` (the SSD kernel plus its
+   call where there is one (decode cold, each call on the next of enough
+   copies of the cache to exceed twice the L2, and warm); holds ``ops.ssd`` (the SSD kernel plus its
    recurrence glue) against the model's plain ``ssd_chunked``.  The
    ``{"kernels": [...]}`` line, printed after phase 3, has one row per
    kernel: the check, times, bound and launches at the first path that ran
@@ -35,6 +36,7 @@ a non-zero code, and prints no result, when no CUDA device is present.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,6 +46,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+L2_BYTES = 50e6  # H100's L2 cache
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 without
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}  # as tests/kernels/test_kernels.py
 # The SSD kernel's outputs are f32 in either input type, and with bf16
@@ -70,17 +73,23 @@ def card_line() -> str:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time per call.  A spin kernel holds the device while the host
-    queues the timed calls, so host launch overhead is not counted."""
+    queues the timed calls, so host launch overhead is not counted.  ``fn``
+    may be a list of calls on copies of the inputs, taken in turn (cold
+    timing): the warm-up then makes one full turn, so every timed call finds
+    its copy last touched a whole turn earlier."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    calls = fn if isinstance(fn, list) else [fn]
+    if len(calls) > 1:
+        warmup = len(calls)
+    for i in range(warmup):
+        calls[i % len(calls)]()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        calls[i % len(calls)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -166,6 +175,14 @@ def prefill_case(gen, B, Sq, H, K, hd, dtype, *, Sk=None, causal=True, window=No
     return row
 
 
+def cold_copies(nbytes: int) -> int:
+    """Copies of inputs of ``nbytes`` that together exceed twice the L2, so
+    that a call taking them in turn finds its copy out of L2, as a decode
+    step finds each layer's cache (the whole model's weights have streamed
+    through L2 since that layer's last step)."""
+    return math.ceil(2 * L2_BYTES / nbytes) + 1
+
+
 def decode_case(gen, B, S, H, K, hd, dtype, lengths, *, window=None, softcap=None,
                 measure=False):
     import torch
@@ -180,10 +197,10 @@ def decode_case(gen, B, S, H, K, hd, dtype, lengths, *, window=None, softcap=Non
     scale = hd ** -0.5
     kw = dict(scale=scale, window=window, softcap=softcap)
 
-    def kernel():
+    def kernel(kc=kc, vc=vc):
         return ops.decode_attention(q, kc, vc, lens, **kw)
 
-    def plain():
+    def plain(kc=kc, vc=vc):
         return ref.decode_attention_ref(
             q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lens, **kw
         )[:, None]
@@ -204,15 +221,26 @@ def decode_case(gen, B, S, H, K, hd, dtype, lengths, *, window=None, softcap=Non
         mask &= pos >= lens[:, None] - window
     mask = mask[:, None, None, :]
 
-    def library():
+    def library(kc=kc, vc=vc):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
             attn_mask=mask, scale=scale, enable_gqa=True,
         )
 
-    lib_ms = time_ms(library) if softcap is None else None
-    row.update(ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms)
+    # Cold: each call takes the next of n copies of the cache (n * the
+    # cache > 2 * L2), so it reads the cache from HBM as the bound assumes;
+    # warm: the same cache every call, from L2.
+    n = cold_copies(2 * kc.numel() * kc.element_size())
+    copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n - 1)]
+
+    def turns(fn):
+        return [lambda c=c: fn(*c) for c in copies]
+
+    row.update(ms=time_ms(turns(kernel)), plain_ms=time_ms(turns(plain)), bound_ms=b_ms,
+               bound_by=b_by, library_ms=time_ms(turns(library)) if softcap is None else None,
+               ms_warm=time_ms(kernel), plain_ms_warm=time_ms(plain),
+               library_ms_warm=time_ms(library) if softcap is None else None, cold_copies=n)
+    del copies
     return row
 
 
@@ -370,28 +398,37 @@ def kernel_phase(B=4, S=512, H=32, K=8, hd=160, gen_steps=32):
     return main
 
 
-def prefill_resources():
+def kernel_resources():
     """Registers, spills and static shared memory (ptxas's report of the
     build) and dynamic shared memory (the library's own count) of every
-    ``flash_prefill`` kernel."""
+    ``flash_prefill`` and ``flash_decode`` kernel; the decode kernels' at
+    the most heads a block serves at that head size."""
     import re
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import max_heads
 
     lib = _build.library()
     rows = []
     for entry in _build.resources():
-        m = re.search(r"(flash_prefill_[a-z0-9]+_kernel)", entry["name"])
+        m = re.search(r"(flash_(prefill|decode)_[a-z0-9]+_kernel)", entry["name"])
         if not m:
             continue
         args = _build.template_args(entry["name"])
-        dtype = 0 if m.group(1) == "flash_prefill_f32_kernel" else 1
-        rows.append(dict(kernel=m.group(1), hd=args[0],
-                         softcap=bool(args[1]) if len(args) > 1 else None,
-                         registers=entry["registers"], spill_store_bytes=entry["spill_stores"],
-                         spill_load_bytes=entry["spill_loads"], static_smem_bytes=entry["smem"],
-                         dynamic_smem_bytes=lib.repro_flash_prefill_smem(dtype, args[0])))
-    if not rows:
-        raise AssertionError("ptxas reported no flash_prefill kernel")
+        dtype = 0 if m.group(1).endswith("_f32_kernel") else 1
+        row = dict(kernel=m.group(1), hd=args[0], registers=entry["registers"],
+                   spill_store_bytes=entry["spill_stores"],
+                   spill_load_bytes=entry["spill_loads"], static_smem_bytes=entry["smem"])
+        if m.group(2) == "prefill":
+            row.update(softcap=bool(args[1]) if len(args) > 1 else None,
+                       dynamic_smem_bytes=lib.repro_flash_prefill_smem(dtype, args[0]))
+        else:
+            heads = max_heads(args[0])
+            row.update(heads=heads,
+                       dynamic_smem_bytes=lib.repro_flash_decode_smem(dtype, args[0], heads))
+        rows.append(row)
+    for name in ("flash_prefill", "flash_decode"):
+        if not any(r["kernel"].startswith(name) for r in rows):
+            raise AssertionError(f"ptxas reported no {name} kernel")
     return rows
 
 
@@ -675,8 +712,8 @@ def main() -> int:
     log(subprocess.run([_build.nvcc_path(), "--version"], check=True, capture_output=True,
                        text=True).stdout.strip().splitlines()[-1])
     log(f"build: kernels built in {_build.timed_build():.1f} s")
-    for row in prefill_resources():
-        log("ptxas flash_prefill:", json.dumps(row))
+    for row in kernel_resources():
+        log(f"ptxas {'_'.join(row['kernel'].split('_')[:2])}:", json.dumps(row))
 
     checked = {**kernel_phase(), **ssd_phase()}
     paths = {arch: slice_phase(card, arch, spec) for arch, spec in SLICES.items()}
@@ -696,7 +733,9 @@ def main() -> int:
                 path=arch, launches=launches[name], max_abs_err=row["max_abs_err"],
                 tol=row["tol"], ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"], shape=row["shape"], dtype=row["dtype"]))
+                library_ms=row["library_ms"], shape=row["shape"], dtype=row["dtype"],
+                **{k: row[k] for k in ("ms_warm", "plain_ms_warm", "library_ms_warm",
+                                       "cold_copies") if k in row}))
         if not entries:
             raise AssertionError(f"{name} was launched on no path")
         rows.append(dict(name=name, **meta, **entries[0], other_paths=entries[1:]))

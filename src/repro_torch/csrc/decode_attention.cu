@@ -8,34 +8,45 @@
 //
 // What bounds it on an H100: the bytes of K and V that the rows' lengths
 // cover.  At stablelm-12b's decode shapes (B=4, K=8, hd=160, len ~545, bf16)
-// that is ~11.2 MB a layer, ~3.3 us at 3.35 TB/s; the arithmetic is ~4 flop
-// per byte, far below the card's balance point.  So the kernel has to keep
-// enough loads in flight on enough SMs.
+// that is ~11.2 MB a layer, ~3.3 us at 3.35 TB/s; at zamba2-1.2b's (B=4,
+// K=32, hd=64, len ~1057) ~34 MB, ~10 us.  The arithmetic is ~4 flop per
+// byte, far below the card's balance point.  So the kernel has to keep
+// enough loads in flight on every SM, and cost little beyond them.
 //
 // What the design does about it:
-//   * one block per (split of the sequence, KV head, batch) serves all
-//     q_per_kv query heads of that KV head from a single read of each K/V
-//     tile, so the cache is read once; the splits (flash-decoding) give
-//     B*K = 32 (batch, KV head) pairs enough blocks to fill the 132 SMs, and
-//     a second small kernel merges the splits' partial softmax sums;
+//   * one launch: the blocks that split one (batch, KV head) pair's keys
+//     form a thread-block cluster (flash-decoding with the merge on chip).
+//     Each block keeps its split's softmax max, sum and unnormalised output
+//     in shared memory; after cluster.sync() every block merges a slice of
+//     the heads' outputs from all the cluster's blocks through distributed
+//     shared memory and writes it.  No scratch in device memory, no second
+//     kernel.  The split plan (kernels/decode_attention.py, ``plan``) sizes
+//     the clusters so that the grid holds about two blocks per SM;
+//   * a block serves a group of its KV head's query heads from one read of
+//     each K/V tile, so the cache is read once per group (once in all at
+//     the configs' q_per_kv);
+//   * bf16: K and V stream through a 4-stage ring of bf16 tiles in shared
+//     memory, filled by 16-byte cp.async, the next three tiles in flight
+//     while one is consumed;
 //   * the cache is read in place in the model's (B, S, K, hd) layout through
-//     strides with 16-byte loads (the JAX wrapper transposes the whole cache
-//     on every call);
-//   * lengths are read from device memory, so the host never waits; the keys
-//     read are [len - window, len) on local layers and [0, len) otherwise,
-//     so entries outside that range are never read, and any cache length S
-//     works.
+//     strides; lengths are read from device memory, so the host never
+//     waits; only [len - window, len) (local layers) or [0, len) is read, and
+//     any cache length S works.
 // Rows with len == 0 are outside the contract (the reference returns the
 // mean of V there, this kernel returns 0).
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace repro {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 64;  // keys per tile
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxCluster = 16;  // kernels/decode_attention.py MAX_CLUSTER
 
 struct DecodeArgs {
   const void* q;
@@ -43,65 +54,124 @@ struct DecodeArgs {
   const void* v;
   const int* lengths;
   void* o;
-  float* part;  // (B, H, nsplit, HD + 2): a split's unnormalized output, max, sum
-  int q_per_kv, S, nsplit, chunk;
+  int q_per_kv, heads, groups, S, chunk;
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, osh;
   float scale, cap;
   int window;
 };
 
-template <int HD>
-size_t decode_smem_bytes(int R) {
-  // q [R][HD], K [kBK][HD + 1], V [kBK][HD], P [R][kBK], acc [R][HD],
-  // m, l, alpha [R], all f32.
-  return sizeof(float) * (R * HD + kBK * (HD + 1) + kBK * HD + R * kBK + R * HD + 3 * R);
+// Where a block sits: its split of the row's keys and its query heads.
+struct Work {
+  int b, kh, h0, nh, k_begin, k_stop;
+};
+
+__device__ __forceinline__ Work block_work(const DecodeArgs& a, int rank) {
+  Work w;
+  const int g = blockIdx.y % a.groups;
+  w.kh = blockIdx.y / a.groups;
+  w.b = blockIdx.z;
+  w.h0 = w.kh * a.q_per_kv + g * a.heads;
+  w.nh = min(a.heads, a.q_per_kv - g * a.heads);
+  const int len = min(a.lengths[w.b], a.S);
+  const int k_first = a.window > 0 ? max(0, len - a.window) : 0;
+  w.k_begin = k_first + rank * a.chunk;
+  w.k_stop = min(len, w.k_begin + a.chunk);
+  return w;
 }
 
+// The blocks of a cluster each hold their split's max m[r], sum l[r] and
+// unnormalised output acc[r * HD + d] for the block's nh heads in shared
+// memory (an empty split: m = -inf, l = 0, acc = 0).  Merges them and writes
+// the heads' outputs, each block a slice; w is shared scratch of
+// kMaxCluster * nh floats.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_decode_kernel(DecodeArgs a) {
+__device__ void cluster_merge(const DecodeArgs& a, const Work& wk, float* m, float* l,
+                              float* acc, float* w) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();  // every block's partial sums are in place
+  for (int r = threadIdx.x; r < wk.nh; r += blockDim.x) {
+    float mx = -INFINITY;
+    for (int s = 0; s < cs; ++s) mx = fmaxf(mx, *cluster.map_shared_rank(m + r, s));
+    float sum = 0.f;
+    for (int s = 0; s < cs; ++s) {
+      const float ms = *cluster.map_shared_rank(m + r, s);
+      const float e = ms == -INFINITY ? 0.f : __expf(ms - mx);
+      w[s * wk.nh + r] = e;
+      sum += e * *cluster.map_shared_rank(l + r, s);
+    }
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    for (int s = 0; s < cs; ++s) w[s * wk.nh + r] *= inv;
+  }
+  __syncthreads();
+  T* ob = static_cast<T*>(a.o) + wk.b * a.osb + wk.h0 * a.osh;
+  for (int e = rank * blockDim.x + threadIdx.x; e < wk.nh * HD; e += cs * blockDim.x) {
+    const int r = e / HD, d = e - r * HD;
+    float o = 0.f;
+    for (int s = 0; s < cs; ++s) o = fmaf(w[s * wk.nh + r], *cluster.map_shared_rank(acc + e, s), o);
+    ob[r * a.osh + d] = from_f32<T>(o);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// ---------------------------------------------------------------------------
+// f32: the first version's kernel (K and V staged as f32 in shared memory),
+// with the cluster merge.
+// ---------------------------------------------------------------------------
+constexpr int kF32Threads = 256;
+constexpr int kF32Warps = kF32Threads / 32;
+constexpr int kF32Tile = 64;
+
+template <int HD>
+__host__ __device__ constexpr size_t f32_smem_bytes(int heads) {
+  // q [nh][HD], K [tile][HD + 1], V [tile][HD], P [nh][tile], acc [nh][HD],
+  // m, l, alpha [nh], merge weights [kMaxCluster][nh], all f32.
+  return sizeof(float) * (heads * HD + kF32Tile * (HD + 1) + kF32Tile * HD + heads * kF32Tile +
+                          heads * HD + 3 * heads + kMaxCluster * heads);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads) flash_decode_f32_kernel(DecodeArgs a) {
   constexpr int KS = HD + 1;  // padded K row: consecutive keys fall in distinct banks
-  constexpr int N = Vec16<T>::N;
+  constexpr int N = Vec16<float>::N;
   constexpr int kChunks = HD / N;
-  const int R = a.q_per_kv;
+  const Work wk = block_work(a, static_cast<int>(cg::this_cluster().block_rank()));
+  const int R = wk.nh;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + R * HD;
-  float* Vs = Ks + kBK * KS;
-  float* Ps = Vs + kBK * HD;
-  float* acc = Ps + R * kBK;
+  float* Vs = Ks + kF32Tile * KS;
+  float* Ps = Vs + kF32Tile * HD;
+  float* acc = Ps + R * kF32Tile;
   float* m = acc + R * HD;
   float* l = m + R;
   float* alpha = l + R;
+  float* w = alpha + R;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + kh * R * a.qsh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kh * a.ksh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kh * a.vsh;
+  const float* qb = static_cast<const float*>(a.q) + wk.b * a.qsb + wk.h0 * a.qsh;
+  const float* kb = static_cast<const float*>(a.k) + wk.b * a.ksb + wk.kh * a.ksh;
+  const float* vb = static_cast<const float*>(a.v) + wk.b * a.vsb + wk.kh * a.vsh;
 
-  const int len = min(a.lengths[b], a.S);
-  const int k_first = a.window > 0 ? max(0, len - a.window) : 0;
-  const int k_begin = k_first + split * a.chunk;
-  const int k_stop = min(len, k_begin + a.chunk);
-
-  for (int i = tid; i < R * HD; i += kThreads) {
+  for (int i = tid; i < R * HD; i += kF32Threads) {
     const int r = i / HD, d = i - r * HD;
-    Qs[i] = to_f32(qb[r * a.qsh + d]);
+    Qs[i] = qb[r * a.qsh + d];
     acc[i] = 0.f;
   }
-  for (int r = tid; r < R; r += kThreads) {
+  for (int r = tid; r < R; r += kF32Threads) {
     m[r] = -INFINITY;
     l[r] = 0.f;
   }
 
-  for (int k0 = k_begin; k0 < k_stop; k0 += kBK) {
+  for (int k0 = wk.k_begin; k0 < wk.k_stop; k0 += kF32Tile) {
     __syncthreads();  // the previous tile is consumed (and q, m, l stored)
-    for (int i = tid; i < kBK * kChunks; i += kThreads) {
+    for (int i = tid; i < kF32Tile * kChunks; i += kF32Threads) {
       const int j = i / kChunks, d = (i - j * kChunks) * N, kp = k0 + j;
       float kv[N], vv[N];
-      if (kp < k_stop) {
-        Vec16<T>::load(kb + kp * a.kss + d, kv);
-        Vec16<T>::load(vb + kp * a.vss + d, vv);
+      if (kp < wk.k_stop) {
+        Vec16<float>::load(kb + kp * a.kss + d, kv);
+        Vec16<float>::load(vb + kp * a.vss + d, vv);
       } else {
 #pragma unroll
         for (int e = 0; e < N; ++e) kv[e] = vv[e] = 0.f;
@@ -116,20 +186,20 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(DecodeArgs a) {
 
     // Scores: one (head, key) pair per thread at a time; consecutive lanes
     // take consecutive keys, so the padded K rows fall in distinct banks.
-    for (int i = tid; i < R * kBK; i += kThreads) {
-      const int r = i / kBK, j = i - r * kBK;
+    for (int i = tid; i < R * kF32Tile; i += kF32Threads) {
+      const int r = i / kF32Tile, j = i - r * kF32Tile;
       const float* qr = Qs + r * HD;
       const float* kr = Ks + j * KS;
       float dot = 0.f;
 #pragma unroll 8
       for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-      Ps[i] = k0 + j < k_stop ? score(dot, a.scale, a.cap) : kMask;
+      Ps[i] = k0 + j < wk.k_stop ? score(dot, a.scale, a.cap) : kMask;
     }
     __syncthreads();
 
     // Online softmax: one warp per head.
-    for (int r = warp; r < R; r += kWarps) {
-      float* pr = Ps + r * kBK;
+    for (int r = warp; r < R; r += kF32Warps) {
+      float* pr = Ps + r * kF32Tile;
       const float s0 = pr[lane], s1 = pr[lane + 32];
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
       const float p0 = __expf(s0 - m_new), p1 = __expf(s1 - m_new);
@@ -145,105 +215,276 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(DecodeArgs a) {
     }
     __syncthreads();
 
-    for (int i = tid; i < R * HD; i += kThreads) {
+    for (int i = tid; i < R * HD; i += kF32Threads) {
       const int r = i / HD, d = i - r * HD;
-      const float* pr = Ps + r * kBK;
+      const float* pr = Ps + r * kF32Tile;
       float o = acc[i] * alpha[r];
 #pragma unroll 8
-      for (int j = 0; j < kBK; ++j) o = fmaf(pr[j], Vs[j * HD + d], o);
+      for (int j = 0; j < kF32Tile; ++j) o = fmaf(pr[j], Vs[j * HD + d], o);
       acc[i] = o;
     }
   }
   __syncthreads();
+  cluster_merge<float, HD>(a, wk, m, l, acc, w);
+}
 
-  const int H = gridDim.y * R;
-  if (a.nsplit == 1) {
-    T* ob = static_cast<T*>(a.o) + b * a.osb + kh * R * a.osh;
-    for (int i = tid; i < R * HD; i += kThreads) {
-      const int r = i / HD, d = i - r * HD;
-      const float inv = l[r] > 0.f ? 1.f / l[r] : 1.f;
-      ob[r * a.osh + d] = from_f32<T>(acc[i] * inv);
+// ---------------------------------------------------------------------------
+// bf16: K and V through a ring of bf16 tiles in shared memory.
+// ---------------------------------------------------------------------------
+constexpr int kRingThreads = 128;
+constexpr int kRingWarps = kRingThreads / 32;
+constexpr int kStages = 4;
+
+// Keys per ring stage: 64 up to hd 64, else 32 (a stage of K and V is then
+// 18 KB at hd 64 and 21 KB at hd 160, so a block's ring stays under 90 KB
+// and two or three blocks fit on an SM).  kernels/decode_attention.py
+// tile_keys states the same rule.
+template <int HD>
+__host__ __device__ constexpr int ring_tile() {
+  return HD <= 64 ? 64 : 32;
+}
+
+// Padded bf16 row: the 8 rows an ldmatrix reads fall in distinct banks.
+template <int HD>
+__host__ __device__ constexpr int ring_ld() {
+  return HD + 8;
+}
+
+template <int HD>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return size_t(2) * kStages * ring_tile<HD>() * ring_ld<HD>() * sizeof(bf16);
+}
+
+template <int HD>
+__host__ __device__ constexpr size_t bf16_smem_bytes(int heads) {
+  // the ring, then f32 q [nh][HD], P [nh][tile], acc [nh][HD], m, l, alpha
+  // [nh] and the merge weights [kMaxCluster][nh].
+  return ring_bytes<HD>() + sizeof(float) * (heads * HD + heads * ring_tile<HD>() +
+                                             heads * HD + 3 * heads + kMaxCluster * heads);
+}
+
+// Starts copying keys [k0, k0 + tile) of a K or V tile into a ring stage
+// with 16-byte cp.async; keys at or past `stop` are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_stage(bf16* dst, const bf16* src, long long row_stride,
+                                           int k0, int stop) {
+  constexpr int kChunks = HD / 8;
+  constexpr int TK = ring_tile<HD>();
+  for (int i = threadIdx.x; i < TK * kChunks; i += kRingThreads) {
+    const int r = i / kChunks, c = (i - r * kChunks) * 8;
+    const bool valid = k0 + r < stop;
+    cp_async_16(dst + r * ring_ld<HD>() + c, valid ? src + (k0 + r) * row_stride + c : src,
+                valid);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeArgs a) {
+  constexpr int TK = ring_tile<HD>(), LD = ring_ld<HD>();
+  const Work wk = block_work(a, static_cast<int>(cg::this_cluster().block_rank()));
+  const int R = wk.nh;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kStages * TK * LD;
+  float* Qs = reinterpret_cast<float*>(Vs + kStages * TK * LD);
+  float* Ps = Qs + R * HD;
+  float* acc = Ps + R * TK;
+  float* m = acc + R * HD;
+  float* l = m + R;
+  float* alpha = l + R;
+  float* w = alpha + R;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bf16* qb = static_cast<const bf16*>(a.q) + wk.b * a.qsb + wk.h0 * a.qsh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + wk.b * a.ksb + wk.kh * a.ksh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + wk.b * a.vsb + wk.kh * a.vsh;
+  const int n_tiles = wk.k_begin < wk.k_stop ? (wk.k_stop - wk.k_begin + TK - 1) / TK : 0;
+
+  // The first kStages - 1 tiles are requested before anything else.
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) {
+      load_stage<HD>(Ks + s * TK * LD, kb, a.kss, wk.k_begin + s * TK, wk.k_stop);
+      load_stage<HD>(Vs + s * TK * LD, vb, a.vss, wk.k_begin + s * TK, wk.k_stop);
     }
-    return;
+    cp_async_commit();
   }
-  // An empty split (past len) leaves m = -inf, l = 0, acc = 0.
-  for (int i = tid; i < R * (HD + 2); i += kThreads) {
-    const int r = i / (HD + 2), d = i - r * (HD + 2);
-    float* p = a.part + ((static_cast<long long>(b) * H + kh * R + r) * a.nsplit + split) * (HD + 2);
-    p[d] = d < HD ? acc[r * HD + d] : (d == HD ? m[r] : l[r]);
+  for (int i = tid; i < R * HD; i += kRingThreads) {
+    const int r = i / HD, d = i - r * HD;
+    Qs[i] = to_f32(qb[r * a.qsh + d]);
+    acc[i] = 0.f;
   }
+  for (int r = tid; r < R; r += kRingThreads) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+
+  for (int it = 0, stage = 0; it < n_tiles; ++it, stage = stage + 1 == kStages ? 0 : stage + 1) {
+    cp_async_wait<kStages - 2>();  // tile `it` has landed
+    __syncthreads();               // ... for every thread; and tile it - 1 is consumed
+    {
+      const int nxt = it + kStages - 1;
+      const int ns = stage == 0 ? kStages - 1 : stage - 1;
+      if (nxt < n_tiles) {
+        load_stage<HD>(Ks + ns * TK * LD, kb, a.kss, wk.k_begin + nxt * TK, wk.k_stop);
+        load_stage<HD>(Vs + ns * TK * LD, vb, a.vss, wk.k_begin + nxt * TK, wk.k_stop);
+      }
+      cp_async_commit();
+    }
+    const int k0 = wk.k_begin + it * TK;
+    const bf16* Kt = Ks + stage * TK * LD;
+    const bf16* Vt = Vs + stage * TK * LD;
+
+    // Scores: one (head, key) pair per thread at a time.
+    for (int i = tid; i < R * TK; i += kRingThreads) {
+      const int r = i / TK, j = i - r * TK;
+      const float* qr = Qs + r * HD;
+      const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(Kt + j * LD);
+      float dot = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < HD / 2; ++d) {
+        const float2 kv = __bfloat1622float2(kr[d]);
+        dot = fmaf(qr[2 * d], kv.x, dot);
+        dot = fmaf(qr[2 * d + 1], kv.y, dot);
+      }
+      Ps[i] = k0 + j < wk.k_stop ? score(dot, a.scale, a.cap) : kMask;
+    }
+    __syncthreads();
+
+    // Online softmax: one warp per head.
+    for (int r = warp; r < R; r += kRingWarps) {
+      float* pr = Ps + r * TK;
+      float mx = -INFINITY;
+      for (int j = lane; j < TK; j += 32) mx = fmaxf(mx, pr[j]);
+      const float m_new = fmaxf(m[r], warp_max(mx));
+      float sum = 0.f;
+      for (int j = lane; j < TK; j += 32) {
+        const float p = __expf(pr[j] - m_new);
+        pr[j] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float al = __expf(m[r] - m_new);
+        alpha[r] = al;
+        l[r] = l[r] * al + sum;
+        m[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < R * HD; i += kRingThreads) {
+      const int r = i / HD, d = i - r * HD;
+      const float* pr = Ps + r * TK;
+      float o = acc[i] * alpha[r];
+#pragma unroll 8
+      for (int j = 0; j < TK; ++j) o = fmaf(pr[j], __bfloat162float(Vt[j * LD + d]), o);
+      acc[i] = o;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  cluster_merge<bf16, HD>(a, wk, m, l, acc, w);
 }
 
-// Merges the splits' partial sums: grid (H, B), one thread per head element.
-template <typename T, int HD>
-__global__ void __launch_bounds__(HD) flash_decode_merge_kernel(DecodeArgs a) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const float* p = a.part + (static_cast<long long>(b) * gridDim.x + h) * a.nsplit * (HD + 2);
-  float mx = -INFINITY;
-  for (int s = 0; s < a.nsplit; ++s) mx = fmaxf(mx, p[s * (HD + 2) + HD]);
-  float sum = 0.f, out = 0.f;
-  for (int s = 0; s < a.nsplit; ++s) {
-    const float* ps = p + s * (HD + 2);
-    const float w = ps[HD + 1] > 0.f ? __expf(ps[HD] - mx) : 0.f;
-    sum += w * ps[HD + 1];
-    out += w * ps[d];
-  }
-  T* ob = static_cast<T*>(a.o) + b * a.osb + h * a.osh;
-  ob[d] = from_f32<T>(sum > 0.f ? out / sum : 0.f);
-}
-
-template <typename T, int HD>
-cudaError_t launch(const DecodeArgs& a, int B, int H, int K, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<HD>(a.q_per_kv);
-  cudaError_t err = allow_smem(flash_decode_kernel<T, HD>, smem);
+// One launch: grid (cluster, K * groups, B), the cluster along x.
+template <typename Kernel>
+cudaError_t launch_cluster(Kernel kernel, const DecodeArgs& a, int cluster, int K, int B,
+                           int threads, size_t smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  flash_decode_kernel<T, HD><<<dim3(a.nsplit, K, B), kThreads, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.nsplit == 1) return err;
-  flash_decode_merge_kernel<T, HD><<<dim3(H, B), HD, 0, stream>>>(a);
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, K * a.groups, B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const DecodeArgs& a, int B, int H, int K, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(a, B, H, K, stream);
-    case 32: return launch<T, 32>(a, B, H, K, stream);
-    case 64: return launch<T, 64>(a, B, H, K, stream);
-    case 128: return launch<T, 128>(a, B, H, K, stream);
-    case 160: return launch<T, 160>(a, B, H, K, stream);
-    case 256: return launch<T, 256>(a, B, H, K, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int HD>
+cudaError_t launch(int dtype, const DecodeArgs& a, int cluster, int K, int B,
+                   cudaStream_t stream) {
+  if (dtype == kFloat32)
+    return launch_cluster(flash_decode_f32_kernel<HD>, a, cluster, K, B, kF32Threads,
+                          f32_smem_bytes<HD>(a.heads), stream);
+  return launch_cluster(flash_decode_bf16_kernel<HD>, a, cluster, K, B, kRingThreads,
+                        bf16_smem_bytes<HD>(a.heads), stream);
 }
+
+template <int HD>
+size_t smem_bytes(int dtype, int heads) {
+  return dtype == kFloat32 ? f32_smem_bytes<HD>(heads) : bf16_smem_bytes<HD>(heads);
+}
+
+template <int HD>
+int tile_keys(int dtype) {
+  return dtype == kFloat32 ? kF32Tile : ring_tile<HD>();
+}
+
+// The supported head sizes; each call below switches over them.
+#define REPRO_DECODE_HEAD_DIMS(X) X(16) X(32) X(64) X(128) X(160) X(256)
 
 }  // namespace
 }  // namespace repro
 
+// Dynamic shared memory of a block of the decode kernel for a type code,
+// head size and heads per block; 0 for an unsupported head size.
+extern "C" int repro_flash_decode_smem(int dtype, int hd, int heads) {
+  using namespace repro;
+  switch (hd) {
+#define X(HD) \
+  case HD: return static_cast<int>(smem_bytes<HD>(dtype, heads));
+    REPRO_DECODE_HEAD_DIMS(X)
+#undef X
+    default: return 0;
+  }
+}
+
 // q (B, H, hd), k and v caches (B, S, K, hd), lengths (B,) int32 on the
 // device, o (B, H, hd), each with a unit stride in its last dimension;
-// strides are in elements, and rows must be 16-byte aligned.  The
-// keys are cut into nsplit splits of chunk keys (a multiple of 64); with
-// nsplit > 1, part is f32 scratch of B * H * nsplit * (hd + 2) floats.
+// strides are in elements, and rows must be 16-byte aligned.  The plan
+// (kernels/decode_attention.py, ``plan``): `cluster` blocks split each
+// row's keys into splits of `chunk` keys, and each of them serves `heads`
+// query heads of its KV head; `tile` must be the kernel's keys per stage.
 // window <= 0 and cap <= 0 disable the window and the softcap.  Returns a
 // cudaError_t.
 extern "C" int repro_flash_decode(int dtype, int hd, const void* q, const void* k,
-                                  const void* v, const int* lengths, void* o, float* part,
-                                  int B, int H, int K, int S, int nsplit, int chunk,
+                                  const void* v, const int* lengths, void* o, int B, int H,
+                                  int K, int S, int cluster, int chunk, int tile, int heads,
                                   long long qsb, long long qsh, long long ksb, long long kss,
                                   long long ksh, long long vsb, long long vss, long long vsh,
                                   long long osb, long long osh, float scale, int window,
                                   float cap, void* stream) {
   using namespace repro;
   if (B <= 0) return cudaSuccess;
-  if (K <= 0 || H % K != 0 || nsplit <= 0 || chunk <= 0 || chunk % kBK != 0 ||
-      (nsplit > 1 && part == nullptr))
+  if (K <= 0 || H % K != 0 || heads <= 0 || heads > H / K || cluster <= 0 ||
+      cluster > kMaxCluster || chunk <= 0 || (dtype != kFloat32 && dtype != kBFloat16))
     return cudaErrorInvalidValue;
-  const DecodeArgs a{q,   k,   v,   lengths, o,   part, H / K, S,     nsplit, chunk, qsb,
-                     qsh, ksb, kss, ksh,     vsb, vss,  vsh,   osb,   osh,    scale, cap,
-                     window};
+  const int R = H / K;
+  const DecodeArgs a{q,   k,   v,   lengths, o,   R,   heads, (R + heads - 1) / heads,
+                     S,   chunk, qsb, qsh,   ksb, kss, ksh,   vsb,
+                     vss, vsh, osb, osh,     scale, cap, window};
   const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_hd<float>(hd, a, B, H, K, st);
-  if (dtype == kBFloat16) return launch_hd<__nv_bfloat16>(hd, a, B, H, K, st);
-  return cudaErrorInvalidValue;
+  switch (hd) {
+#define X(HD)                                                 \
+  case HD:                                                    \
+    if (tile != tile_keys<HD>(dtype)) return cudaErrorInvalidValue; \
+    return launch<HD>(dtype, a, cluster, K, B, st);
+    REPRO_DECODE_HEAD_DIMS(X)
+#undef X
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -12,14 +12,16 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 from .flash_attention import DTYPES, check_operands
 
-TILE = 64  # keys per tile of the kernel
+MAX_CLUSTER = 16  # blocks in one cluster (above 8 with the non-portable attribute)
+F32_TILE = 64  # keys per tile of the f32 kernel
+BLOCKS_PER_SM = 2  # blocks of the grid per SM that the plan aims at
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,16 +29,60 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def splits(B: int, K: int, S: int, window: Optional[int], sm_count: int) -> Tuple[int, int]:
-    """(nsplit, chunk): how many blocks share one row's keys, and how many
-    keys (a multiple of TILE) each takes.  Enough splits that the
-    B * K * nsplit blocks fill about two waves of the SMs, and no more than
-    the keys a row can read have tiles."""
+class Plan(NamedTuple):
+    """How one call is cut into blocks: ``cluster`` blocks (one thread-block
+    cluster) split each row's keys into splits of ``chunk`` keys, walked in
+    tiles of ``tile`` keys; ``groups`` blocks each serve ``heads`` query
+    heads of a KV head (the last group may serve fewer)."""
+
+    cluster: int
+    chunk: int
+    tile: int
+    groups: int
+    heads: int
+
+
+def tile_keys(hd: int, f32: bool = False) -> int:
+    """Keys per tile: 64 in f32 and for bf16 up to hd 64, else 32 (the
+    kernel's ring_tile)."""
+    return F32_TILE if f32 or hd <= 64 else 32
+
+
+def max_heads(hd: int) -> int:
+    """Query heads one block serves at most: each of a warp's lanes keeps
+    heads * ceil(hd / 64) * 2 f32 sums, held to 32."""
+    return min(8, 16 // math.ceil(hd / 64))
+
+
+def plan(B: int, K: int, q_per_kv: int, S: int, hd: int, window: Optional[int],
+         sm_count: int, f32: bool = False) -> Plan:
+    """The split plan.  The bytes in flight set the pace: at 3.35 TB/s and
+    ~1 us of load latency the card needs ~3.4 MB in flight, ~25 KB an SM.  A
+    block keeps three ring stages in flight (~55 KB at hd 64, ~64 KB at hd
+    160, or its whole split if shorter), so two blocks per SM are enough:
+    the clusters are sized so the grid holds about ``BLOCKS_PER_SM`` blocks
+    per SM, at most ``MAX_CLUSTER`` a cluster and no more than the longest
+    row has tiles.  A row's keys [first, len) (first = len - window on local
+    layers, else 0) fall in splits [first + i * chunk, first + (i + 1) *
+    chunk) of ranks i < cluster: ``split_keys``."""
+    groups = math.ceil(q_per_kv / max_heads(hd))
+    heads = math.ceil(q_per_kv / groups)
+    groups = math.ceil(q_per_kv / heads)  # no group left without a head
+    tile = tile_keys(hd, f32)
     span = min(S, window) if window else S
-    tiles = max(1, math.ceil(span / TILE))
-    nsplit = max(1, min(tiles, math.ceil(2 * sm_count / (B * K))))
-    chunk = TILE * math.ceil(tiles / nsplit)
-    return math.ceil(span / chunk) if span else 1, chunk
+    tiles = max(1, math.ceil(span / tile))
+    pairs = B * K * groups
+    cluster = max(1, min(MAX_CLUSTER, tiles, BLOCKS_PER_SM * sm_count // pairs))
+    chunk = max(1, math.ceil(span / cluster))
+    return Plan(math.ceil(max(span, 1) / chunk), chunk, tile, groups, heads)
+
+
+def split_keys(p: Plan, length: int, window: Optional[int], rank: int) -> range:
+    """The keys of a row of ``length`` entries that block ``rank`` of its
+    cluster reads (the kernel's block_work)."""
+    first = max(0, length - window) if window else 0
+    begin = first + rank * p.chunk
+    return range(begin, min(length, begin + p.chunk))
 
 
 def flash_decode(
@@ -67,15 +113,13 @@ def flash_decode(
         raise ValueError("lengths must be contiguous")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
-    nsplit, chunk = splits(B, K, S, window, _sm_count(q.device.index or 0))
-    part = None
-    if nsplit > 1:
-        part = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32, device=q.device)
+    p = plan(B, K, H // K, S, hd, window, _sm_count(q.device.index or 0),
+             f32=q.dtype == torch.float32)
     strides = [*q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3], *out.stride()[:2]]
     err = _build.library().repro_flash_decode(
         DTYPES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part.data_ptr() if part is not None else None,
-        B, H, K, S, nsplit, chunk, *strides, float(scale),
-        window or 0, float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream,
+        lengths.data_ptr(), out.data_ptr(), B, H, K, S, p.cluster, p.chunk, p.tile, p.heads,
+        *strides, float(scale), window or 0, float(softcap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_decode")

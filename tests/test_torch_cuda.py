@@ -96,13 +96,33 @@ class TestKernelsOnCard:
         (400, 256, [400, 150, 77, 2], dict(window=128, softcap=50.0)),
         (300, 64, [300, 123, 5, 299], dict()),
         (100, 64, [100, 64, 1, 65], dict(batch=64)),  # enough blocks: no split
+        # zamba2-1.2b's shape: MHA (q_per_kv 1), hd 64, cache 1057
+        (1057, 64, [1057, 1025, 1040, 1032], dict(H=32, K=32)),
+        # q_per_kv 5 (one block serves all five), a row of length 1 beside
+        # full ones
+        (300, 128, [300, 1, 299, 150], dict(H=10, K=2)),
+        # q_per_kv 12: two groups of six heads, clusters of 16
+        (1057, 64, [1057, 1, 600, 1000], dict(H=12, K=1)),
+        # a window of 100 keys cut into four splits of 25: its edge and the
+        # split borders fall inside the rows' ranges
+        (545, 160, [545, 300, 77, 130], dict(window=100)),
+        # one pair per row: the largest cluster the plan makes (16)
+        (2048, 64, [2048, 1], dict(batch=2, H=4, K=1)),
+        # caches as (B, K, S, hd) tensors seen through a transpose
+        (545, 160, [545, 513, 529, 1], dict(heads_outer=True)),
     ])
     def test_flash_decode(self, cuda, dtype, S, hd, lengths, kw):
         td = DTYPES[dtype]
         g = torch.Generator(device=cuda).manual_seed(1)
-        B = kw.pop("batch", 4)
-        q, kc, vc = (torch.randn(s, generator=g, device=cuda).to(td)
-                     for s in [(B, 1, 8, hd), (B, S, 2, hd), (B, S, 2, hd)])
+        kw = dict(kw)
+        B, H, K = kw.pop("batch", 4), kw.pop("H", 8), kw.pop("K", 2)
+        q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(td)
+        if kw.pop("heads_outer", False):
+            kc, vc = (torch.randn(B, K, S, hd, generator=g, device=cuda).to(td).transpose(1, 2)
+                      for _ in range(2))
+        else:
+            kc, vc = (torch.randn(B, S, K, hd, generator=g, device=cuda).to(td)
+                      for _ in range(2))
         lens = torch.tensor((lengths * B)[:B], dtype=torch.int32, device=cuda)
         n = ops.LAUNCHES["flash_decode"]
         got = ops.decode_attention(q, kc, vc, lens, scale=hd ** -0.5, **kw)

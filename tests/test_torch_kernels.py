@@ -28,6 +28,7 @@ from repro.kernels.flash_attention import flash_attention_bhsd
 from repro.kernels.ssd_scan import ssd_intra_chunk as jax_ssd_intra_chunk
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import decode_attention as dec
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -127,6 +128,59 @@ class TestDecodeAttentionRef:
         want = decode_attention_bkh(jq, jk, jv, jnp.asarray(lengths), scale=32 ** -0.5,
                                     block_k=128, **kw)
         assert_close(got, want, "float32")
+
+
+def check_plan(B, K, R, S, hd, window, f32):
+    """The plan's invariants for one call: a cluster within the launcher's
+    limit, head groups that cover the q_per_kv heads with none empty, the
+    kernel's tile, and every key of [len - window, len) in exactly one
+    split, for every length 1..S."""
+    p = dec.plan(B, K, R, S, hd, window, 132, f32=f32)
+    assert 1 <= p.cluster <= dec.MAX_CLUSTER
+    assert p.heads <= dec.max_heads(hd) and (p.groups - 1) * p.heads < R <= p.groups * p.heads
+    assert p.tile == dec.tile_keys(hd, f32)
+    for length in range(1, S + 1):
+        first = max(0, length - window) if window else 0
+        splits = [dec.split_keys(p, length, window, rank) for rank in range(p.cluster)]
+        covered = [s for s in splits if len(s)]
+        assert covered[0].start == first and covered[-1].stop == length
+        assert all(a.stop == b.start for a, b in zip(covered, covered[1:]))
+        assert sum(len(s) for s in splits) == length - first
+    return p
+
+
+class TestDecodePlan:
+    """The split plan of the decode kernel (pure Python)."""
+
+    @pytest.mark.parametrize("f32", [False, True])
+    @pytest.mark.parametrize("B,K,R,S,hd,window", [
+        (4, 8, 4, 545, 160, None),  # stablelm-12b's decode
+        (4, 32, 1, 1057, 64, None),  # zamba2-1.2b's
+        (1, 1, 4, 4096, 64, None),  # one pair: the largest cluster
+        (64, 32, 1, 4096, 128, None),  # many pairs: no split
+        (1, 2, 12, 4096, 256, 1000),
+        (3, 5, 5, 77, 16, 40),
+        (64, 1, 8, 1, 32, None),
+        (2, 4, 130, 300, 160, 128),
+        (7, 3, 2, 2049, 64, 4096),
+    ])
+    def test_every_key_in_one_split(self, B, K, R, S, hd, window, f32):
+        check_plan(B, K, R, S, hd, window, f32)
+
+    def test_random_calls(self):
+        rng = np.random.default_rng(7)
+        for _ in range(60):
+            B, K, S = int(rng.integers(1, 65)), int(rng.integers(1, 33)), int(rng.integers(1, 4097))
+            window = None if rng.random() < 0.5 else int(rng.integers(1, 5000))
+            hd = int(rng.choice([16, 32, 64, 128, 160, 256]))
+            check_plan(B, K, int(rng.integers(1, 17)), S, hd, window, bool(rng.random() < 0.3))
+
+    @pytest.mark.parametrize("B,K,R,S,hd", [(4, 8, 4, 545, 160), (4, 32, 1, 1057, 64)],
+                             ids=["stablelm_12b", "zamba2_1p2b"])
+    def test_path_shapes_fill_the_card(self, B, K, R, S, hd):
+        p = dec.plan(B, K, R, S, hd, None, 132)
+        assert p.cluster * K * p.groups * B >= 132
+        assert p.cluster > 1 and p.groups == 1
 
 
 class TestOpsLayout:

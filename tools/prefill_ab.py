@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""Times versions of the bf16 ``flash_prefill`` kernel against each other in
-one process on one card, in turns, beside ``scaled_dot_product_attention``.
+"""Times versions of a bf16 attention kernel (``flash_prefill`` or
+``flash_decode``) against each other in one process on one card, in turns,
+beside ``scaled_dot_product_attention``.
 
     python3 tools/prefill_ab.py --tree old=<csrc dir> --tree new=src/repro_torch/csrc \\
-        --order old,new,new,old
+        --order old,new,new,old [--kernel flash_decode]
 
 Each ``--tree NAME=DIR`` names a directory of CUDA sources (``csrc/`` of this
 checkout, or of an older commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists).  Each is built into its own library
 with ``kernels/_build.py``; each version's output at every shape is held
-against the plain version (``ref.flash_attention_ref``) before any timing;
-a version that disagrees or fails to launch is reported and not timed.
-Then the versions are timed in the order given, at the main paths' shapes
-(stablelm-12b and zamba2-1.2b prefill, bf16, causal), with CUDA events as
-``chip_smoke.time_ms`` does; the library call is timed first and last.
+against the plain version (``ref.flash_attention_ref`` or
+``ref.decode_attention_ref``) before any timing; a version that disagrees
+or fails to launch is reported and not timed.  Then the versions are timed
+in the order given, at the main paths' shapes (stablelm-12b and zamba2-1.2b,
+bf16; prefill causal, decode at ``chip_smoke.py``'s cache lengths), with
+CUDA events as ``chip_smoke.time_ms`` does; the library call is timed first
+and last.  Prefill is timed warm; decode warm (the same cache every call)
+and cold (each call on the next of enough copies of the cache to exceed
+twice the L2, ``chip_smoke.cold_copies``).  Every decode version is
+launched with this checkout's split plan (``decode_attention.plan``), but
+a tree whose entry point still takes the f32 ``part`` scratch (the first
+version's two-kernel merge) is launched with its own plan and scratch.
 Prints one JSON line per timing and writes all of them, with the card's
-name and power limit and ptxas's report of each version's prefill kernels,
-to ``--out`` (``build/prefill_ab.json`` by default).
+name and power limit and ptxas's report of each version's kernels, to
+``--out`` (``build/<kernel>_ab.json`` by default).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
-import os
+import math
 import sys
 from pathlib import Path
 
@@ -32,13 +41,18 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 # name: (B, S, H, K, hd), causal, no window, no softcap
-SHAPES = {
+PREFILL_SHAPES = {
     "stablelm_12b": (4, 512, 32, 8, 160),
     "zamba2_1p2b": (4, 1024, 32, 32, 64),
 }
+# name: (B, S, H, K, hd, lengths), as chip_smoke.kernel_phase's decode rows
+DECODE_SHAPES = {
+    "stablelm_12b": (4, 545, 32, 8, 160, [545, 513, 528, 520]),
+    "zamba2_1p2b": (4, 1057, 32, 32, 64, [1057, 1025, 1040, 1032]),
+}
 
 
-def launch(lib, q, k, v, out, scale):
+def prefill_launch(lib, q, k, v, out, scale):
     """One bf16 causal launch through a given library's C entry point."""
     import torch
     from repro_torch.kernels import _build
@@ -52,17 +66,129 @@ def launch(lib, q, k, v, out, scale):
     _build.check(err, "flash_prefill")
 
 
-def main() -> int:
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# The first version's entry point: an f32 scratch `part` and (nsplit, chunk).
+SPLIT_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 10 + [_F, _I, _F, _P]
+
+
+def split_plan(B, K, S, sm_count):
+    """The first version's (nsplit, chunk): about two waves of blocks, chunks
+    a multiple of its 64-key tile."""
+    tiles = max(1, math.ceil(S / 64))
+    nsplit = max(1, min(tiles, math.ceil(2 * sm_count / (B * K))))
+    chunk = 64 * math.ceil(tiles / nsplit)
+    return math.ceil(S / chunk), chunk
+
+
+class DecodeVersion:
+    """Launches one tree's bf16 decode kernel through its C entry point."""
+
+    def __init__(self, lib, csrc: Path):
+        self.lib = lib
+        self.split = "float* part" in (csrc / "decode_attention.cu").read_text()
+        if self.split:
+            lib.repro_flash_decode.argtypes = SPLIT_SIGNATURE
+        self.part = None
+
+    def __call__(self, q, kc, vc, lens, out, scale):
+        import torch
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.decode_attention import _sm_count, plan
+
+        B, H, hd = q.shape
+        S, K = kc.shape[1], kc.shape[2]
+        strides = [*q.stride()[:2], *kc.stride()[:3], *vc.stride()[:3], *out.stride()[:2]]
+        ptrs = [q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(), out.data_ptr()]
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.split:
+            nsplit, chunk = split_plan(B, K, S, _sm_count(0))
+            size = B * H * nsplit * (hd + 2)
+            if self.part is None or self.part.numel() < size:
+                self.part = torch.empty(size, dtype=torch.float32, device=q.device)
+            err = self.lib.repro_flash_decode(
+                1, hd, *ptrs, self.part.data_ptr() if nsplit > 1 else None, B, H, K, S,
+                nsplit, chunk, *strides, float(scale), 0, 0.0, stream)
+        else:
+            p = plan(B, K, H // K, S, hd, None, _sm_count(0))
+            err = self.lib.repro_flash_decode(
+                1, hd, *ptrs, B, H, K, S, p.cluster, p.chunk, p.tile, p.heads, *strides,
+                float(scale), 0, 0.0, stream)
+        _build.check(err, "flash_decode")
+
+
+def prefill_cases(gen, libs, trees):
+    """(shape name, inputs, want, launch, library) for each prefill shape;
+    inputs is a list of one argument tuple (timed warm only)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import ref
+
+    for name, (B, S, H, K, hd) in PREFILL_SHAPES.items():
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda").to(torch.bfloat16)
+                   for n in (H, K, K))
+        scale = hd ** -0.5
+        want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                       scale=scale, causal=True).transpose(1, 2)
+        outs = {t: torch.empty_like(q) for t in libs}
+
+        def launch(tree, q, k, v, outs=outs, scale=scale):
+            prefill_launch(libs[tree], q, k, v, outs[tree], scale)
+            return outs[tree]
+
+        def library(q, k, v, scale=scale):
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), is_causal=True,
+                                                  scale=scale, enable_gqa=True)
+
+        yield name, {"warm": [(q, k, v)]}, want, launch, library
+
+
+def decode_cases(gen, libs, trees):
+    """As prefill_cases for each decode shape, timed warm on one cache and
+    cold on ``cold_copies`` copies of it taken in turn."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import cold_copies
+    from repro_torch.kernels import ref
+
+    versions = {t: DecodeVersion(lib, Path(trees[t]).resolve()) for t, lib in libs.items()}
+    for name, (B, S, H, K, hd, lengths) in DECODE_SHAPES.items():
+        q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        kc, vc = (torch.randn(B, S, K, hd, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        scale = hd ** -0.5
+        want = ref.decode_attention_ref(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lens,
+                                        scale=scale)[:, None]
+        outs = {t: torch.empty(B, H, hd, dtype=q.dtype, device="cuda") for t in libs}
+        n = cold_copies(2 * kc.numel() * kc.element_size())
+        copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n - 1)]
+
+        def launch(tree, kc, vc, q=q, lens=lens, outs=outs, scale=scale):
+            versions[tree](q[:, 0], kc, vc, lens, outs[tree], scale)
+            return outs[tree][:, None]
+
+        def library(kc, vc, q=q, mask=mask, scale=scale):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+                scale=scale, enable_gqa=True)
+
+        yield name, {"warm": copies[:1], "cold": copies}, want, launch, library
+
+
+def main() -> int:
+    import torch
     from chip_smoke import card_line, close, time_ms
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=["flash_prefill", "flash_decode"],
+                    default="flash_prefill")
     ap.add_argument("--tree", action="append", required=True, help="NAME=DIR of CUDA sources")
     ap.add_argument("--order", required=True, help="comma-separated tree names, in turn")
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--out", default=str(ROOT / "build" / "prefill_ab.json"))
+    ap.add_argument("--out", default=None, help="default build/<kernel>_ab.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("prefill_ab: no CUDA device", file=sys.stderr)
@@ -75,47 +201,36 @@ def main() -> int:
         csrc = Path(path).resolve()
         libs[name] = _build.bind(_build.build(csrc))
         report[name] = [dict(e, args=_build.template_args(e["name"]))
-                        for e in _build.resources(csrc) if "flash_prefill" in e["name"]]
+                        for e in _build.resources(csrc) if args.kernel in e["name"]]
         print(f"ptxas {name}:", json.dumps(report[name]), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = (prefill_cases if args.kernel == "flash_prefill" else decode_cases)(gen, libs, trees)
     rows = []
-    for shape_name, (B, S, H, K, hd) in SHAPES.items():
-        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda").to(torch.bfloat16)
-                   for n in (H, K, K))
-        scale = hd ** -0.5
-        want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                       scale=scale, causal=True).transpose(1, 2)
-        outs = {name: torch.empty_like(q) for name in libs}
+    for shape_name, inputs, want, launch, library in cases:
         wrong = set()
-        for name, lib in libs.items():
+        for name in libs:
             try:
-                launch(lib, q, k, v, outs[name], scale)
-                err = close(outs[name], want, torch.bfloat16)
+                err = close(launch(name, *inputs["warm"][0]), want, torch.bfloat16)
             except (AssertionError, RuntimeError) as exc:  # reported; not timed
                 wrong.add(name)
                 err = str(exc)
             rows.append(dict(shape=shape_name, tree=name, max_abs_err=err))
             print(json.dumps(rows[-1]), flush=True)
-
-        def library():
-            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                  v.transpose(1, 2), is_causal=True,
-                                                  scale=scale, enable_gqa=True)
-
         sequence = ["library", *(n for n in order if n not in wrong), "library"]
-        for turn, name in enumerate(sequence):
-            if name == "library":
-                ms = time_ms(library, iters=args.iters)
-            else:
-                lib, out = libs[name], outs[name]
-                ms = time_ms(lambda: launch(lib, q, k, v, out, scale), iters=args.iters)
-            rows.append(dict(shape=shape_name, turn=turn, tree=name, ms=ms))
-            print(json.dumps(rows[-1]), flush=True)
-    out = Path(args.out)
+        for mode, sets in inputs.items():
+            for turn, name in enumerate(sequence):
+                fn = library if name == "library" else (lambda *a, t=name: launch(t, *a))
+                calls = [lambda s=s, fn=fn: fn(*s) for s in sets]
+                ms = time_ms(calls if len(calls) > 1 else calls[0], iters=args.iters)
+                rows.append(dict(shape=shape_name, mode=mode, turn=turn, tree=name, ms=ms,
+                                 copies=len(sets)))
+                print(json.dumps(rows[-1]), flush=True)
+    out = Path(args.out or ROOT / "build" / f"{args.kernel}_ab.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(
-        dict(card=card, trees=trees, order=order, ptxas=report, rows=rows), indent=1))
+        dict(card=card, kernel=args.kernel, trees=trees, order=order, ptxas=report, rows=rows),
+        indent=1))
     print(card, flush=True)
     return 1 if any(isinstance(r.get("max_abs_err"), str) for r in rows) else 0
 
