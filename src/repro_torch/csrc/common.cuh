@@ -94,6 +94,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
+// Two 8x8 b16 matrices from shared memory, row addresses from lanes 0-15.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  const auto addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
 // A 16-byte asynchronous copy from device to shared memory; with `valid`
 // false nothing is read and the 16 bytes are zero-filled.
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {

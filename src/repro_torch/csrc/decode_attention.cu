@@ -27,7 +27,14 @@
 //     the configs' q_per_kv);
 //   * bf16: K and V stream through a 4-stage ring of bf16 tiles in shared
 //     memory, filled by 16-byte cp.async, the next three tiles in flight
-//     while one is consumed;
+//     while one is consumed; the block's barrier at each stage is the only
+//     one in the key loop;
+//   * every warp is busy at any q_per_kv: the four warps split each tile's
+//     keys, score them for all the block's heads at once on mma.sync (q in
+//     registers; the heads are the product's rows, so MHA wastes rows of a
+//     tensor-core product, not threads) and keep their own softmax state
+//     and f32 outputs in registers; PV stays f32 on the CUDA cores, as the
+//     reference keeps P in f32.  The warps merge once, after the last tile;
 //   * the cache is read in place in the model's (B, S, K, hd) layout through
 //     strides; lengths are read from device memory, so the host never
 //     waits; only [len - window, len) (local layers) or [0, len) is read, and
@@ -229,7 +236,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_decode_f32_kernel(DecodeArg
 }
 
 // ---------------------------------------------------------------------------
-// bf16: K and V through a ring of bf16 tiles in shared memory.
+// bf16: K and V through a ring of bf16 tiles in shared memory; the warps
+// split each tile's keys.
 // ---------------------------------------------------------------------------
 constexpr int kRingThreads = 128;
 constexpr int kRingWarps = kRingThreads / 32;
@@ -250,6 +258,12 @@ __host__ __device__ constexpr int ring_ld() {
   return HD + 8;
 }
 
+// Most query heads a block serves: kernels/decode_attention.py max_heads.
+template <int HD>
+__host__ __device__ constexpr int ring_heads() {
+  return 16 / ((HD + 63) / 64) < 8 ? 16 / ((HD + 63) / 64) : 8;
+}
+
 template <int HD>
 __host__ __device__ constexpr size_t ring_bytes() {
   return size_t(2) * kStages * ring_tile<HD>() * ring_ld<HD>() * sizeof(bf16);
@@ -257,10 +271,13 @@ __host__ __device__ constexpr size_t ring_bytes() {
 
 template <int HD>
 __host__ __device__ constexpr size_t bf16_smem_bytes(int heads) {
-  // the ring, then f32 q [nh][HD], P [nh][tile], acc [nh][HD], m, l, alpha
-  // [nh] and the merge weights [kMaxCluster][nh].
-  return ring_bytes<HD>() + sizeof(float) * (heads * HD + heads * ring_tile<HD>() +
-                                             heads * HD + 3 * heads + kMaxCluster * heads);
+  // The ring (after the key loop it holds the warps' outputs [warps][nh][HD]
+  // and the block's [nh][HD], f32), then f32 per warp its P [nh][keys] and
+  // alpha, m, l [nh], the block's m and l [nh] and the merge weights
+  // [kMaxCluster][nh].
+  return ring_bytes<HD>() + sizeof(float) * (kRingWarps * heads * (ring_tile<HD>() / kRingWarps) +
+                                             3 * kRingWarps * heads + 2 * heads +
+                                             kMaxCluster * heads);
 }
 
 // Starts copying keys [k0, k0 + tile) of a K or V tile into a ring stage
@@ -278,24 +295,40 @@ __device__ __forceinline__ void load_stage(bf16* dst, const bf16* src, long long
   }
 }
 
+// Each warp takes WK = tile / 4 keys of every tile.  Scores: S = Q Kᵀ on
+// mma.sync m16n8k16, the block's heads as the rows (rows 8-15 zero), the
+// warp's keys as n-tiles of 8; q lives in registers as A fragments, K as B
+// fragments straight from the ring by ldmatrix.  A lane then holds head
+// g = lane / 4's scores for keys 2 (lane % 4) + {0, 1} of each n-tile and
+// that head's running max (the quad's lanes agree) and a share of its sum.
+// PV in f32 on the CUDA cores: lane owns the bf16 pairs of dims
+// 2 lane + 64 i of every head, reads V rows from the ring and P from the
+// warp's slot in shared memory (a broadcast).  The warps merge once, after
+// the last tile, then the cluster.
 template <int HD>
 __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeArgs a) {
-  constexpr int TK = ring_tile<HD>(), LD = ring_ld<HD>();
+  constexpr int TK = ring_tile<HD>(), LD = ring_ld<HD>(), RM = ring_heads<HD>();
+  constexpr int WK = TK / kRingWarps;  // keys per warp per tile
+  constexpr int NT = WK / 8;           // score n-tiles per warp
+  constexpr int KS = HD / 16;          // k-steps of the score product
+  constexpr int NP = (HD + 63) / 64;   // dim pairs per lane
   const Work wk = block_work(a, static_cast<int>(cg::this_cluster().block_rank()));
-  const int R = wk.nh;
+  const int nh = wk.nh;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + kStages * TK * LD;
-  float* Qs = reinterpret_cast<float*>(Vs + kStages * TK * LD);
-  float* Ps = Qs + R * HD;
-  float* acc = Ps + R * TK;
-  float* m = acc + R * HD;
-  float* l = m + R;
-  float* alpha = l + R;
-  float* w = alpha + R;
+  float* Pw = reinterpret_cast<float*>(smem_raw + ring_bytes<HD>());  // [warps][nh][WK]
+  float* Aw = Pw + kRingWarps * nh * WK;  // [warps][nh] alpha
+  float* Mw = Aw + kRingWarps * nh;       // [warps][nh]
+  float* Lw = Mw + kRingWarps * nh;       // [warps][nh]
+  float* m = Lw + kRingWarps * nh;        // the block's [nh]
+  float* l = m + nh;
+  float* w = l + nh;
+  float* Ow = reinterpret_cast<float*>(smem_raw);  // [warps][nh][HD], on the ring
+  float* acc = Ow + kRingWarps * nh * HD;          // the block's [nh][HD], on the ring
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bf16* qb = static_cast<const bf16*>(a.q) + wk.b * a.qsb + wk.h0 * a.qsh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
   const bf16* kb = static_cast<const bf16*>(a.k) + wk.b * a.ksb + wk.kh * a.ksh;
   const bf16* vb = static_cast<const bf16*>(a.v) + wk.b * a.vsb + wk.kh * a.vsh;
   const int n_tiles = wk.k_begin < wk.k_stop ? (wk.k_stop - wk.k_begin + TK - 1) / TK : 0;
@@ -309,15 +342,26 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
     }
     cp_async_commit();
   }
-  for (int i = tid; i < R * HD; i += kRingThreads) {
-    const int r = i / HD, d = i - r * HD;
-    Qs[i] = to_f32(qb[r * a.qsh + d]);
-    acc[i] = 0.f;
+
+  // q as A fragments: row g (head g of the block; zero past nh), dims
+  // 16 ks + 2c + {0, 1} and + 8.
+  uint32_t qa[KS][2];
+  {
+    const bf16* qr = static_cast<const bf16*>(a.q) + wk.b * a.qsb + (wk.h0 + g) * a.qsh;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      qa[ks][0] = g < nh ? *reinterpret_cast<const uint32_t*>(qr + ks * 16 + 2 * c) : 0u;
+      qa[ks][1] = g < nh ? *reinterpret_cast<const uint32_t*>(qr + ks * 16 + 8 + 2 * c) : 0u;
+    }
   }
-  for (int r = tid; r < R; r += kRingThreads) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
+  float o[RM][NP][2];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int i = 0; i < NP; ++i) o[r][i][0] = o[r][i][1] = 0.f;
+  float m_g = -INFINITY, l_g = 0.f;  // head g: running max; this lane's share of the sum
+  float* pw = Pw + warp * nh * WK;
+  float* aw = Aw + warp * nh;
 
   for (int it = 0, stage = 0; it < n_tiles; ++it, stage = stage + 1 == kStages ? 0 : stage + 1) {
     cp_async_wait<kStages - 2>();  // tile `it` has landed
@@ -331,59 +375,142 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
       }
       cp_async_commit();
     }
-    const int k0 = wk.k_begin + it * TK;
-    const bf16* Kt = Ks + stage * TK * LD;
-    const bf16* Vt = Vs + stage * TK * LD;
+    const int kw0 = wk.k_begin + it * TK + warp * WK;  // the warp's first key
+    if (kw0 >= wk.k_stop) continue;                    // all of its keys are past the split
+    const bf16* Kt = Ks + (stage * TK + warp * WK) * LD;
+    const bf16* Vt = Vs + (stage * TK + warp * WK) * LD;
 
-    // Scores: one (head, key) pair per thread at a time.
-    for (int i = tid; i < R * TK; i += kRingThreads) {
-      const int r = i / TK, j = i - r * TK;
-      const float* qr = Qs + r * HD;
-      const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(Kt + j * LD);
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD / 2; ++d) {
-        const float2 kv = __bfloat1622float2(kr[d]);
-        dot = fmaf(qr[2 * d], kv.x, dot);
-        dot = fmaf(qr[2 * d + 1], kv.y, dot);
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const bf16* kr = Kt + (nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
+#pragma unroll
+      for (int ks = 0; ks + 1 < KS; ks += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kr + ks * 16);
+        const uint32_t a0[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+        const uint32_t a1[4] = {qa[ks + 1][0], 0u, qa[ks + 1][1], 0u};
+        mma_bf16(s[nt], a0, kf[0], kf[1]);
+        mma_bf16(s[nt], a1, kf[2], kf[3]);
       }
-      Ps[i] = k0 + j < wk.k_stop ? score(dot, a.scale, a.cap) : kMask;
+      if (KS % 2) {
+        uint32_t kf[2];
+        ldmatrix_x2(kf, Kt + (nt * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8 + (KS - 1) * 16);
+        const uint32_t a0[4] = {qa[KS - 1][0], 0u, qa[KS - 1][1], 0u};
+        mma_bf16(s[nt], a0, kf[0], kf[1]);
+      }
     }
-    __syncthreads();
 
-    // Online softmax: one warp per head.
-    for (int r = warp; r < R; r += kRingWarps) {
-      float* pr = Ps + r * TK;
-      float mx = -INFINITY;
-      for (int j = lane; j < TK; j += 32) mx = fmaxf(mx, pr[j]);
-      const float m_new = fmaxf(m[r], warp_max(mx));
-      float sum = 0.f;
-      for (int j = lane; j < TK; j += 32) {
-        const float p = __expf(pr[j] - m_new);
-        pr[j] = p;
+    // Online softmax of head g over the warp's keys; masked keys get -inf,
+    // and a head that has seen no key yet keeps m = -inf, l = 0.
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kp = kw0 + nt * 8 + 2 * c + e;
+        s[nt][e] = kp < wk.k_stop ? score(s[nt][e], a.scale, a.cap) : -INFINITY;
+        mx = fmaxf(mx, s[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_g, mx);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = __expf(m_g - m_use);
+    m_g = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = __expf(s[nt][e] - m_use);
         sum += p;
+        if (g < nh) pw[g * WK + nt * 8 + 2 * c + e] = p;
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float al = __expf(m[r] - m_new);
-        alpha[r] = al;
-        l[r] = l[r] * al + sum;
-        m[r] = m_new;
-      }
-    }
-    __syncthreads();
+    l_g = l_g * alpha + sum;
+    if (g < nh && c == 0) aw[g] = alpha;
+    __syncwarp();
 
-    for (int i = tid; i < R * HD; i += kRingThreads) {
-      const int r = i / HD, d = i - r * HD;
-      const float* pr = Ps + r * TK;
-      float o = acc[i] * alpha[r];
-#pragma unroll 8
-      for (int j = 0; j < TK; ++j) o = fmaf(pr[j], __bfloat162float(Vt[j * LD + d]), o);
-      acc[i] = o;
+    // PV: four keys at a time, V pairs for each, then every head's P.
+#pragma unroll
+    for (int j0 = 0; j0 < WK; j0 += 4) {
+      float2 v[4][NP];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int d = 2 * lane + 64 * i;
+          v[jj][i] = d < HD ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                  Vt + (j0 + jj) * LD + d))
+                            : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        if (r >= nh) break;
+        const float4 p4 = *reinterpret_cast<const float4*>(pw + r * WK + j0);
+        if (j0 == 0) {
+          const float al = aw[r];
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            o[r][i][0] *= al;
+            o[r][i][1] *= al;
+          }
+        }
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            o[r][i][0] = fmaf(pj[jj], v[jj][i].x, o[r][i][0]);
+            o[r][i][1] = fmaf(pj[jj], v[jj][i].y, o[r][i][1]);
+          }
+      }
     }
+    __syncwarp();  // P and alpha are read before the next tile writes them
   }
   cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it now holds the warps' outputs
+
+  // The warps' partial sums: head g's max and sum from its quad, each
+  // lane's dims of every head.
+  l_g += __shfl_xor_sync(0xffffffffu, l_g, 1);
+  l_g += __shfl_xor_sync(0xffffffffu, l_g, 2);
+  if (g < nh && c == 0) {
+    Mw[warp * nh + g] = m_g;
+    Lw[warp * nh + g] = l_g;
+  }
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    if (r >= nh) break;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int d = 2 * lane + 64 * i;
+      if (d < HD)
+        *reinterpret_cast<float2*>(Ow + (warp * nh + r) * HD + d) =
+            make_float2(o[r][i][0], o[r][i][1]);
+    }
+  }
   __syncthreads();
+  for (int e = threadIdx.x; e < nh * HD; e += kRingThreads) {
+    const int r = e / HD;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < kRingWarps; ++q) mx = fmaxf(mx, Mw[q * nh + r]);
+    float sum = 0.f, out = 0.f;
+#pragma unroll
+    for (int q = 0; q < kRingWarps; ++q) {
+      const float mq = Mw[q * nh + r];
+      const float f = mq == -INFINITY ? 0.f : __expf(mq - mx);
+      sum += f * Lw[q * nh + r];
+      out += f * Ow[q * nh * HD + e];
+    }
+    acc[e] = out;
+    if (e - r * HD == 0) {
+      m[r] = mx;
+      l[r] = sum;
+    }
+  }
   cluster_merge<bf16, HD>(a, wk, m, l, acc, w);
 }
 
@@ -475,13 +602,14 @@ extern "C" int repro_flash_decode(int dtype, int hd, const void* q, const void* 
     return cudaErrorInvalidValue;
   const int R = H / K;
   const DecodeArgs a{q,   k,   v,   lengths, o,   R,   heads, (R + heads - 1) / heads,
-                     S,   chunk, qsb, qsh,   ksb, kss, ksh,   vsb,
-                     vss, vsh, osb, osh,     scale, cap, window};
+                     S,   chunk, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, osb,
+                     osh, scale, cap, window};
   const auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-#define X(HD)                                                 \
-  case HD:                                                    \
-    if (tile != tile_keys<HD>(dtype)) return cudaErrorInvalidValue; \
+#define X(HD)                                                     \
+  case HD:                                                        \
+    if (tile != tile_keys<HD>(dtype) || heads > ring_heads<HD>()) \
+      return cudaErrorInvalidValue;                               \
     return launch<HD>(dtype, a, cluster, K, B, st);
     REPRO_DECODE_HEAD_DIMS(X)
 #undef X
