@@ -188,6 +188,7 @@ def decode_case(gen, B, S, H, K, hd, dtype, lengths, *, window=None, softcap=Non
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import device_plan
 
     dev = "cuda"
     q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
@@ -236,6 +237,7 @@ def decode_case(gen, B, S, H, K, hd, dtype, lengths, *, window=None, softcap=Non
     def turns(fn):
         return [lambda c=c: fn(*c) for c in copies]
 
+    row.update(plan=device_plan(q.device, dtype, B, K, H // K, S, hd, window)._asdict())
     row.update(ms=time_ms(turns(kernel)), plain_ms=time_ms(turns(plain)), bound_ms=b_ms,
                bound_by=b_by, library_ms=time_ms(turns(library)) if softcap is None else None,
                ms_warm=time_ms(kernel), plain_ms_warm=time_ms(plain),

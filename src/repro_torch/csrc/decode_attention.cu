@@ -86,40 +86,68 @@ __device__ __forceinline__ Work block_work(const DecodeArgs& a, int rank) {
   return w;
 }
 
-// The blocks of a cluster each hold their split's max m[r], sum l[r] and
-// unnormalised output acc[r * HD + d] for the block's nh heads in shared
-// memory (an empty split: m = -inf, l = 0, acc = 0).  Merges them and writes
-// the heads' outputs, each block a slice; w is shared scratch of
-// kMaxCluster * nh floats.
-template <typename T, int HD>
-__device__ void cluster_merge(const DecodeArgs& a, const Work& wk, float* m, float* l,
-                              float* acc, float* w) {
+// Floats of a block's merge buffers: its slice of every rank's outputs,
+// [cluster][ceil(nh * HD / cluster)], and every rank's max and sum [2][cluster][nh].
+template <int HD>
+__host__ __device__ constexpr int merge_floats(int heads) {
+  return heads * HD + kMaxCluster + 2 * kMaxCluster * heads;
+}
+
+// Distributed shared memory may be written only once its block has started:
+// every block arrives at a cluster barrier first thing and waits on it just
+// before its first store to another block (by then the wait is over).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The blocks of a cluster each hold their split's max m[r] and sum l[r]
+// for the block's nh heads in shared memory, and partial(e) gives its
+// unnormalised output e = r * HD + d (an empty split: m = -inf, l = 0,
+// output 0).  Rank q of cs owns the outputs [q * slice, (q + 1) * slice) of
+// the nh * HD: every block stores its partial outputs straight into their
+// owners' buffers `rx` and its max and sum into every block's, in
+// distributed shared memory (stores do not wait for the far SM), then one
+// cluster.sync() makes them visible, and each block merges and writes its
+// slice from its own shared memory.  No block reads another's memory, so
+// none has to wait for the others to leave.
+template <typename T, int HD, typename Partial>
+__device__ void cluster_merge(const DecodeArgs& a, const Work& wk, const float* m,
+                              const float* l, Partial partial, float* rx) {
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  cluster.sync();  // every block's partial sums are in place
-  for (int r = threadIdx.x; r < wk.nh; r += blockDim.x) {
-    float mx = -INFINITY;
-    for (int s = 0; s < cs; ++s) mx = fmaxf(mx, *cluster.map_shared_rank(m + r, s));
-    float sum = 0.f;
-    for (int s = 0; s < cs; ++s) {
-      const float ms = *cluster.map_shared_rank(m + r, s);
-      const float e = ms == -INFINITY ? 0.f : __expf(ms - mx);
-      w[s * wk.nh + r] = e;
-      sum += e * *cluster.map_shared_rank(l + r, s);
-    }
-    const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    for (int s = 0; s < cs; ++s) w[s * wk.nh + r] *= inv;
+  const int n = wk.nh * HD, slice = (n + cs - 1) / cs;
+  float* rm = rx + cs * slice;  // [cs][nh]
+  float* rl = rm + cs * wk.nh;  // [cs][nh]
+  cluster_wait();  // every block of the cluster has started (see cluster_arrive_relaxed)
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int q = e / slice;
+    *cluster.map_shared_rank(rx + rank * slice + e - q * slice, q) = partial(e);
   }
-  __syncthreads();
+  for (int i = threadIdx.x; i < cs * wk.nh; i += blockDim.x) {
+    const int q = i / wk.nh, r = i - q * wk.nh;
+    *cluster.map_shared_rank(rm + rank * wk.nh + r, q) = m[r];
+    *cluster.map_shared_rank(rl + rank * wk.nh + r, q) = l[r];
+  }
+  cluster.sync();  // every split's partial sums are in their owners' memory
   T* ob = static_cast<T*>(a.o) + wk.b * a.osb + wk.h0 * a.osh;
-  for (int e = rank * blockDim.x + threadIdx.x; e < wk.nh * HD; e += cs * blockDim.x) {
-    const int r = e / HD, d = e - r * HD;
-    float o = 0.f;
-    for (int s = 0; s < cs; ++s) o = fmaf(w[s * wk.nh + r], *cluster.map_shared_rank(acc + e, s), o);
-    ob[r * a.osh + d] = from_f32<T>(o);
+  for (int e = rank * slice + threadIdx.x; e < min(n, (rank + 1) * slice); e += blockDim.x) {
+    const int r = e / HD, d = e - r * HD, j = e - rank * slice;
+    float mx = -INFINITY;
+    for (int s = 0; s < cs; ++s) mx = fmaxf(mx, rm[s * wk.nh + r]);
+    float sum = 0.f, o = 0.f;
+    for (int s = 0; s < cs; ++s) {
+      const float ms = rm[s * wk.nh + r];
+      const float f = ms == -INFINITY ? 0.f : __expf(ms - mx);
+      sum = fmaf(f, rl[s * wk.nh + r], sum);
+      o = fmaf(f, rx[s * slice + j], o);
+    }
+    ob[r * a.osh + d] = from_f32<T>(sum > 0.f ? o / sum : 0.f);
   }
-  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // ---------------------------------------------------------------------------
@@ -133,9 +161,9 @@ constexpr int kF32Tile = 64;
 template <int HD>
 __host__ __device__ constexpr size_t f32_smem_bytes(int heads) {
   // q [nh][HD], K [tile][HD + 1], V [tile][HD], P [nh][tile], acc [nh][HD],
-  // m, l, alpha [nh], merge weights [kMaxCluster][nh], all f32.
+  // m, l, alpha [nh], the merge buffers, all f32.
   return sizeof(float) * (heads * HD + kF32Tile * (HD + 1) + kF32Tile * HD + heads * kF32Tile +
-                          heads * HD + 3 * heads + kMaxCluster * heads);
+                          heads * HD + 3 * heads + merge_floats<HD>(heads));
 }
 
 template <int HD>
@@ -143,6 +171,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_decode_f32_kernel(DecodeArg
   constexpr int KS = HD + 1;  // padded K row: consecutive keys fall in distinct banks
   constexpr int N = Vec16<float>::N;
   constexpr int kChunks = HD / N;
+  cluster_arrive_relaxed();
   const Work wk = block_work(a, static_cast<int>(cg::this_cluster().block_rank()));
   const int R = wk.nh;
   extern __shared__ float smem[];
@@ -154,7 +183,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_decode_f32_kernel(DecodeArg
   float* m = acc + R * HD;
   float* l = m + R;
   float* alpha = l + R;
-  float* w = alpha + R;
+  float* rx = alpha + R;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* qb = static_cast<const float*>(a.q) + wk.b * a.qsb + wk.h0 * a.qsh;
@@ -232,7 +261,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_decode_f32_kernel(DecodeArg
     }
   }
   __syncthreads();
-  cluster_merge<float, HD>(a, wk, m, l, acc, w);
+  cluster_merge<float, HD>(a, wk, m, l, [&](int e) { return acc[e]; }, rx);
 }
 
 // ---------------------------------------------------------------------------
@@ -271,13 +300,14 @@ __host__ __device__ constexpr size_t ring_bytes() {
 
 template <int HD>
 __host__ __device__ constexpr size_t bf16_smem_bytes(int heads) {
-  // The ring (after the key loop it holds the warps' outputs [warps][nh][HD]
-  // and the block's [nh][HD], f32), then f32 per warp its P [nh][keys] and
-  // alpha, m, l [nh], the block's m and l [nh] and the merge weights
-  // [kMaxCluster][nh].
+  // The ring (after the key loop it holds the warps' outputs [warps][nh][HD],
+  // f32), then f32 per warp its P [nh][keys] and
+  // alpha, m, l [nh], the block's m and l [nh] and the merge buffers (apart
+  // from the ring: other blocks store into them while this one may still
+  // be in its key loop).
   return ring_bytes<HD>() + sizeof(float) * (kRingWarps * heads * (ring_tile<HD>() / kRingWarps) +
                                              3 * kRingWarps * heads + 2 * heads +
-                                             kMaxCluster * heads);
+                                             merge_floats<HD>(heads));
 }
 
 // Starts copying keys [k0, k0 + tile) of a K or V tile into a ring stage
@@ -312,6 +342,7 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
   constexpr int NT = WK / 8;           // score n-tiles per warp
   constexpr int KS = HD / 16;          // k-steps of the score product
   constexpr int NP = (HD + 63) / 64;   // dim pairs per lane
+  cluster_arrive_relaxed();
   const Work wk = block_work(a, static_cast<int>(cg::this_cluster().block_rank()));
   const int nh = wk.nh;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -323,9 +354,8 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
   float* Lw = Mw + kRingWarps * nh;       // [warps][nh]
   float* m = Lw + kRingWarps * nh;        // the block's [nh]
   float* l = m + nh;
-  float* w = l + nh;
+  float* rx = l + nh;
   float* Ow = reinterpret_cast<float*>(smem_raw);  // [warps][nh][HD], on the ring
-  float* acc = Ow + kRingWarps * nh * HD;          // the block's [nh][HD], on the ring
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, c = lane & 3;
@@ -333,18 +363,9 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
   const bf16* vb = static_cast<const bf16*>(a.v) + wk.b * a.vsb + wk.kh * a.vsh;
   const int n_tiles = wk.k_begin < wk.k_stop ? (wk.k_stop - wk.k_begin + TK - 1) / TK : 0;
 
-  // The first kStages - 1 tiles are requested before anything else.
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_tiles) {
-      load_stage<HD>(Ks + s * TK * LD, kb, a.kss, wk.k_begin + s * TK, wk.k_stop);
-      load_stage<HD>(Vs + s * TK * LD, vb, a.vss, wk.k_begin + s * TK, wk.k_stop);
-    }
-    cp_async_commit();
-  }
-
-  // q as A fragments: row g (head g of the block; zero past nh), dims
-  // 16 ks + 2c + {0, 1} and + 8.
+  // q as A fragments, loaded first (they do not wait for the row's length):
+  // row g (head g of the block; zero past nh), dims 16 ks + 2c + {0, 1} and
+  // + 8.
   uint32_t qa[KS][2];
   {
     const bf16* qr = static_cast<const bf16*>(a.q) + wk.b * a.qsb + (wk.h0 + g) * a.qsh;
@@ -354,6 +375,16 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
       qa[ks][1] = g < nh ? *reinterpret_cast<const uint32_t*>(qr + ks * 16 + 8 + 2 * c) : 0u;
     }
   }
+  // Then the first kStages - 1 tiles.
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) {
+      load_stage<HD>(Ks + s * TK * LD, kb, a.kss, wk.k_begin + s * TK, wk.k_stop);
+      load_stage<HD>(Vs + s * TK * LD, vb, a.vss, wk.k_begin + s * TK, wk.k_stop);
+    }
+    cp_async_commit();
+  }
+
   float o[RM][NP][2];
 #pragma unroll
   for (int r = 0; r < RM; ++r)
@@ -380,10 +411,11 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
     const bf16* Kt = Ks + (stage * TK + warp * WK) * LD;
     const bf16* Vt = Vs + (stage * TK + warp * WK) * LD;
 
-    float s[NT][4];
+    float s[NT][4], s_odd[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = s_odd[nt][e] = 0.f;
       const bf16* kr = Kt + (nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
 #pragma unroll
       for (int ks = 0; ks + 1 < KS; ks += 2) {
@@ -392,7 +424,7 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
         const uint32_t a0[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
         const uint32_t a1[4] = {qa[ks + 1][0], 0u, qa[ks + 1][1], 0u};
         mma_bf16(s[nt], a0, kf[0], kf[1]);
-        mma_bf16(s[nt], a1, kf[2], kf[3]);
+        mma_bf16(s_odd[nt], a1, kf[2], kf[3]);
       }
       if (KS % 2) {
         uint32_t kf[2];
@@ -400,6 +432,8 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
         const uint32_t a0[4] = {qa[KS - 1][0], 0u, qa[KS - 1][1], 0u};
         mma_bf16(s[nt], a0, kf[0], kf[1]);
       }
+      s[nt][0] += s_odd[nt][0];
+      s[nt][1] += s_odd[nt][1];
     }
 
     // Online softmax of head g over the warp's keys; masked keys get -inf,
@@ -492,53 +526,84 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < nh * HD; e += kRingThreads) {
-    const int r = e / HD;
+  // Each warp's weight for each head, in place of its alpha: exp(m_w - max).
+  for (int r = threadIdx.x; r < nh; r += kRingThreads) {
     float mx = -INFINITY;
 #pragma unroll
     for (int q = 0; q < kRingWarps; ++q) mx = fmaxf(mx, Mw[q * nh + r]);
-    float sum = 0.f, out = 0.f;
+    float sum = 0.f;
 #pragma unroll
     for (int q = 0; q < kRingWarps; ++q) {
       const float mq = Mw[q * nh + r];
       const float f = mq == -INFINITY ? 0.f : __expf(mq - mx);
-      sum += f * Lw[q * nh + r];
-      out += f * Ow[q * nh * HD + e];
+      Aw[q * nh + r] = f;
+      sum = fmaf(f, Lw[q * nh + r], sum);
     }
-    acc[e] = out;
-    if (e - r * HD == 0) {
-      m[r] = mx;
-      l[r] = sum;
-    }
+    m[r] = mx;
+    l[r] = sum;
   }
-  cluster_merge<bf16, HD>(a, wk, m, l, acc, w);
+  __syncthreads();
+  cluster_merge<bf16, HD>(
+      a, wk, m, l,
+      [&](int e) {
+        const int r = e / HD;
+        float o = 0.f;
+#pragma unroll
+        for (int q = 0; q < kRingWarps; ++q) o = fmaf(Aw[q * nh + r], Ow[q * nh * HD + e], o);
+        return o;
+      },
+      rx);
 }
 
-// One launch: grid (cluster, K * groups, B), the cluster along x.
+// The kernel's launch: grid (cluster, K * groups, B), the cluster along x.
 template <typename Kernel>
-cudaError_t launch_cluster(Kernel kernel, const DecodeArgs& a, int cluster, int K, int B,
-                           int threads, size_t smem, cudaStream_t stream) {
+cudaError_t configure(Kernel kernel, int cluster, dim3 grid, int threads, size_t smem,
+                      cudaStream_t stream, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   if (cluster > 8) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, K * a.groups, B);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cfg.attrs = attr;
+  cfg.attrs = &attr;
   cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename Kernel>
+cudaError_t launch_cluster(Kernel kernel, const DecodeArgs& a, int cluster, int K, int B,
+                           int threads, size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(kernel, cluster, dim3(cluster, K * a.groups, B), threads, smem,
+                              stream, cfg, attr);
+  if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks the card holds at once (negative:
+// a cudaError_t).
+template <typename Kernel>
+int resident_clusters(Kernel kernel, int cluster, int threads, size_t smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(kernel, cluster, dim3(cluster, 1, 1), threads, smem, nullptr, cfg,
+                              attr);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 template <int HD>
@@ -549,6 +614,15 @@ cudaError_t launch(int dtype, const DecodeArgs& a, int cluster, int K, int B,
                           f32_smem_bytes<HD>(a.heads), stream);
   return launch_cluster(flash_decode_bf16_kernel<HD>, a, cluster, K, B, kRingThreads,
                         bf16_smem_bytes<HD>(a.heads), stream);
+}
+
+template <int HD>
+int resident(int dtype, int heads, int cluster) {
+  if (dtype == kFloat32)
+    return resident_clusters(flash_decode_f32_kernel<HD>, cluster, kF32Threads,
+                             f32_smem_bytes<HD>(heads));
+  return resident_clusters(flash_decode_bf16_kernel<HD>, cluster, kRingThreads,
+                           bf16_smem_bytes<HD>(heads));
 }
 
 template <int HD>
@@ -577,6 +651,21 @@ extern "C" int repro_flash_decode_smem(int dtype, int hd, int heads) {
     REPRO_DECODE_HEAD_DIMS(X)
 #undef X
     default: return 0;
+  }
+}
+
+// How many clusters of `cluster` blocks, each serving `heads` query heads,
+// the card holds at once for a type code and head size (the plan's
+// `resident`); negative: a cudaError_t.
+extern "C" int repro_flash_decode_clusters(int dtype, int hd, int heads, int cluster) {
+  using namespace repro;
+  if (cluster <= 0 || cluster > kMaxCluster || heads <= 0) return -cudaErrorInvalidValue;
+  switch (hd) {
+#define X(HD) \
+  case HD: return resident<HD>(dtype, heads, cluster);
+    REPRO_DECODE_HEAD_DIMS(X)
+#undef X
+    default: return -cudaErrorInvalidValue;
   }
 }
 

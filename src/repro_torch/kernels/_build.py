@@ -42,6 +42,7 @@ SIGNATURES = {
     + [_L] * 10
     + [_F, _I, _F, _P],
     "repro_flash_decode_smem": [_I, _I, _I],
+    "repro_flash_decode_clusters": [_I, _I, _I, _I],
     "repro_ssd_intra_chunk": [_I, _I, _I] + [_P] * 7 + [_I] * 4 + [_L] * 10 + [_P],
     "repro_flash_prefill_smem": [_I, _I],
 }

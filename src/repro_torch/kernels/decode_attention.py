@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -21,12 +21,17 @@ from .flash_attention import DTYPES, check_operands
 
 MAX_CLUSTER = 16  # blocks in one cluster (above 8 with the non-portable attribute)
 F32_TILE = 64  # keys per tile of the f32 kernel
-BLOCKS_PER_SM = 2  # blocks of the grid per SM that the plan aims at
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+def _resident(device_index: int, dtype: int, hd: int, cluster: int, heads: int) -> int:
+    """Clusters of ``cluster`` blocks the card holds at once (the CUDA
+    occupancy calculator, through the library)."""
+    with torch.cuda.device(device_index):
+        n = _build.library().repro_flash_decode_clusters(dtype, hd, heads, cluster)
+    if n < 0:
+        raise RuntimeError(f"flash_decode occupancy query failed: cudaError_t {-n}")
+    return n
 
 
 class Plan(NamedTuple):
@@ -55,26 +60,51 @@ def max_heads(hd: int) -> int:
 
 
 def plan(B: int, K: int, q_per_kv: int, S: int, hd: int, window: Optional[int],
-         sm_count: int, f32: bool = False) -> Plan:
-    """The split plan.  The bytes in flight set the pace: at 3.35 TB/s and
-    ~1 us of load latency the card needs ~3.4 MB in flight, ~25 KB an SM.  A
-    block keeps three ring stages in flight (~55 KB at hd 64, ~64 KB at hd
-    160, or its whole split if shorter), so two blocks per SM are enough:
-    the clusters are sized so the grid holds about ``BLOCKS_PER_SM`` blocks
-    per SM, at most ``MAX_CLUSTER`` a cluster and no more than the longest
-    row has tiles.  A row's keys [first, len) (first = len - window on local
-    layers, else 0) fall in splits [first + i * chunk, first + (i + 1) *
-    chunk) of ranks i < cluster: ``split_keys``."""
+         resident: Callable[[int, int], int], f32: bool = False) -> Plan:
+    """The split plan.  ``resident(cluster, heads)`` is how many clusters of
+    that many blocks the card holds at once.
+
+    A decode call moves a few to a few tens of MB, and each block pays a
+    fixed latency (reading its row's length, the first loads, the merge), so
+    the plan wants every block on the card at once, and as many of them as
+    that allows: at 3.35 TB/s and ~1 us of load latency the card needs ~3.4
+    MB in flight, ~25 KB an SM, and a block keeps three ring stages in flight
+    (~55 KB at hd 64, ~64 KB at hd 160, or its whole split if shorter).  So
+    each (batch, KV head, head group) gets the largest cluster, at most
+    ``MAX_CLUSTER`` and no more than the longest row has tiles, of which the
+    card holds them all at once; a larger cluster would put part of the grid
+    in a second wave, and a cluster of more than two blocks packs into the
+    GPCs less well than the SM count suggests.  If even one block each does
+    not fit, the clusters are of one block.  A row's keys [first, len)
+    (first = len - window on local layers, else 0) fall in splits
+    [first + i * chunk, first + (i + 1) * chunk) of ranks i < cluster:
+    ``split_keys``."""
     groups = math.ceil(q_per_kv / max_heads(hd))
     heads = math.ceil(q_per_kv / groups)
     groups = math.ceil(q_per_kv / heads)  # no group left without a head
     tile = tile_keys(hd, f32)
     span = min(S, window) if window else S
-    tiles = max(1, math.ceil(span / tile))
     pairs = B * K * groups
-    cluster = max(1, min(MAX_CLUSTER, tiles, BLOCKS_PER_SM * sm_count // pairs))
+    cluster = 1
+    for c in range(min(MAX_CLUSTER, math.ceil(span / tile)), 1, -1):
+        if pairs <= resident(c, heads):
+            cluster = c
+            break
     chunk = max(1, math.ceil(span / cluster))
     return Plan(math.ceil(max(span, 1) / chunk), chunk, tile, groups, heads)
+
+
+def device_plan(device: torch.device, dtype: torch.dtype, B: int, K: int, q_per_kv: int,
+                S: int, hd: int, window: Optional[int]) -> Plan:
+    """The plan of a call on a CUDA device, from the card's own occupancy."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _device_plan(index, DTYPES[dtype], B, K, q_per_kv, S, hd, window)
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_plan(index, dtype, B, K, q_per_kv, S, hd, window) -> Plan:
+    return plan(B, K, q_per_kv, S, hd, window, functools.partial(_resident, index, dtype, hd),
+                f32=dtype == DTYPES[torch.float32])
 
 
 def split_keys(p: Plan, length: int, window: Optional[int], rank: int) -> range:
@@ -113,8 +143,7 @@ def flash_decode(
         raise ValueError("lengths must be contiguous")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
-    p = plan(B, K, H // K, S, hd, window, _sm_count(q.device.index or 0),
-             f32=q.dtype == torch.float32)
+    p = device_plan(q.device, q.dtype, B, K, H // K, S, hd, window)
     strides = [*q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3], *out.stride()[:2]]
     err = _build.library().repro_flash_decode(
         DTYPES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

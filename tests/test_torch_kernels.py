@@ -130,13 +130,22 @@ class TestDecodeAttentionRef:
         assert_close(got, want, "float32")
 
 
+def h100_resident(cluster, heads):
+    """A model of the card's occupancy for the CPU tests: 132 SMs, two
+    blocks each, clusters packed without loss (on the card the plan asks
+    the CUDA occupancy calculator)."""
+    return 2 * 132 // cluster
+
+
 def check_plan(B, K, R, S, hd, window, f32):
     """The plan's invariants for one call: a cluster within the launcher's
-    limit, head groups that cover the q_per_kv heads with none empty, the
-    kernel's tile, and every key of [len - window, len) in exactly one
-    split, for every length 1..S."""
-    p = dec.plan(B, K, R, S, hd, window, 132, f32=f32)
+    limit that the card holds all of (or of one block), head groups that
+    cover the q_per_kv heads with none empty, the kernel's tile, and every
+    key of [len - window, len) in exactly one split, for every length
+    1..S."""
+    p = dec.plan(B, K, R, S, hd, window, h100_resident, f32=f32)
     assert 1 <= p.cluster <= dec.MAX_CLUSTER
+    assert p.cluster == 1 or B * K * p.groups <= h100_resident(p.cluster, p.heads)
     assert p.heads <= dec.max_heads(hd) and (p.groups - 1) * p.heads < R <= p.groups * p.heads
     assert p.tile == dec.tile_keys(hd, f32)
     for length in range(1, S + 1):
@@ -178,9 +187,43 @@ class TestDecodePlan:
     @pytest.mark.parametrize("B,K,R,S,hd", [(4, 8, 4, 545, 160), (4, 32, 1, 1057, 64)],
                              ids=["stablelm_12b", "zamba2_1p2b"])
     def test_path_shapes_fill_the_card(self, B, K, R, S, hd):
-        p = dec.plan(B, K, R, S, hd, None, 132)
+        p = dec.plan(B, K, R, S, hd, None, h100_resident)
         assert p.cluster * K * p.groups * B >= 132
         assert p.cluster > 1 and p.groups == 1
+
+    def test_device_plan_asks_the_card(self, monkeypatch):
+        """On the card the plan's residency comes from the library's
+        occupancy query (dtype, hd, heads, cluster), each argument in its
+        place."""
+        import contextlib
+
+        asked = []
+
+        class Library:
+            def repro_flash_decode_clusters(self, dtype, hd, heads, cluster):
+                asked.append((dtype, hd, heads, cluster))
+                return h100_resident(cluster, heads)
+
+        monkeypatch.setattr(dec._build, "library", Library)
+        monkeypatch.setattr(dec.torch.cuda, "device", lambda index: contextlib.nullcontext())
+        dec._resident.cache_clear()
+        try:
+            got = dec._device_plan.__wrapped__(0, 1, 4, 8, 4, 545, 160, None)
+        finally:
+            dec._resident.cache_clear()
+        assert got == dec.plan(4, 8, 4, 545, 160, None, h100_resident)
+        assert asked and all(a[:3] == (1, 160, 4) for a in asked)
+        assert {a[3] for a in asked} == set(range(got.cluster, 17))
+
+    def test_largest_cluster_the_card_holds(self):
+        """Clusters of more than six blocks that do not all fit at once
+        (as GPC packing can make them) give way to clusters of six."""
+        def resident(cluster, heads):
+            return 2 * 132 // cluster if cluster <= 6 else 28
+
+        p = dec.plan(4, 8, 4, 545, 160, None, resident)
+        assert (p.cluster, p.chunk, p.heads) == (6, 91, 4)
+        assert dec.plan(4, 8, 4, 545, 160, None, lambda c, h: 0).cluster == 1
 
 
 class TestOpsLayout:
@@ -371,3 +414,18 @@ class TestBuild:
         text = (_build.CSRC / "flash_attention.cu").read_text()
         patched = probe.patched_source(text)
         assert patched.count("pr_record();") == 2 and "g_probe" in patched
+
+    def test_decode_probe_patches_the_current_kernel(self):
+        """tools/decode_probe.py instruments a copy of the bf16 decode kernel
+        and its cluster merge at anchor lines; every anchor must still be in
+        the source, once."""
+        import importlib.util
+        from pathlib import Path
+
+        root = Path(__file__).resolve().parents[1]
+        spec = importlib.util.spec_from_file_location("decode_probe",
+                                                      root / "tools" / "decode_probe.py")
+        probe = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(probe)
+        patched = probe.patched_source((_build.CSRC / "decode_attention.cu").read_text())
+        assert patched.count("pr_t[") == 7 and "g_probe" in patched

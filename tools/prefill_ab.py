@@ -18,10 +18,8 @@ bf16; prefill causal, decode at ``chip_smoke.py``'s cache lengths), with
 CUDA events as ``chip_smoke.time_ms`` does; the library call is timed first
 and last.  Prefill is timed warm; decode warm (the same cache every call)
 and cold (each call on the next of enough copies of the cache to exceed
-twice the L2, ``chip_smoke.cold_copies``).  Every decode version is
-launched with this checkout's split plan (``decode_attention.plan``), but
-a tree whose entry point still takes the f32 ``part`` scratch (the first
-version's two-kernel merge) is launched with its own plan and scratch.
+twice the L2, ``chip_smoke.cold_copies``).  Each decode version is
+launched with the split plan it shipped with (``DecodeVersion``).
 Prints one JSON line per timing and writes all of them, with the card's
 name and power limit and ptxas's report of each version's kernels, to
 ``--out`` (``build/<kernel>_ab.json`` by default).
@@ -81,19 +79,33 @@ def split_plan(B, K, S, sm_count):
 
 
 class DecodeVersion:
-    """Launches one tree's bf16 decode kernel through its C entry point."""
+    """Launches one tree's bf16 decode kernel through its C entry point, with
+    the split plan that version shipped with: the first version's
+    ``split_plan`` and ``part`` scratch; this checkout's ``plan`` with the
+    tree's own occupancy query where it exports one; else ``plan`` with
+    clusters sized for about two blocks an SM (the cluster versions before
+    the query)."""
 
     def __init__(self, lib, csrc: Path):
+        import torch
+
         self.lib = lib
         self.split = "float* part" in (csrc / "decode_attention.cu").read_text()
         if self.split:
             lib.repro_flash_decode.argtypes = SPLIT_SIGNATURE
+        self.sm = torch.cuda.get_device_properties(0).multi_processor_count
+        self.query = hasattr(lib, "repro_flash_decode_clusters")
         self.part = None
+
+    def resident(self, hd, cluster, heads):
+        if self.query:
+            return self.lib.repro_flash_decode_clusters(1, hd, heads, cluster)
+        return 2 * self.sm // cluster
 
     def __call__(self, q, kc, vc, lens, out, scale):
         import torch
         from repro_torch.kernels import _build
-        from repro_torch.kernels.decode_attention import _sm_count, plan
+        from repro_torch.kernels.decode_attention import plan
 
         B, H, hd = q.shape
         S, K = kc.shape[1], kc.shape[2]
@@ -101,7 +113,7 @@ class DecodeVersion:
         ptrs = [q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(), out.data_ptr()]
         stream = torch.cuda.current_stream().cuda_stream
         if self.split:
-            nsplit, chunk = split_plan(B, K, S, _sm_count(0))
+            nsplit, chunk = split_plan(B, K, S, self.sm)
             size = B * H * nsplit * (hd + 2)
             if self.part is None or self.part.numel() < size:
                 self.part = torch.empty(size, dtype=torch.float32, device=q.device)
@@ -109,7 +121,7 @@ class DecodeVersion:
                 1, hd, *ptrs, self.part.data_ptr() if nsplit > 1 else None, B, H, K, S,
                 nsplit, chunk, *strides, float(scale), 0, 0.0, stream)
         else:
-            p = plan(B, K, H // K, S, hd, None, _sm_count(0))
+            p = plan(B, K, H // K, S, hd, None, lambda c, h: self.resident(hd, c, h))
             err = self.lib.repro_flash_decode(
                 1, hd, *ptrs, B, H, K, S, p.cluster, p.chunk, p.tile, p.heads, *strides,
                 float(scale), 0, 0.0, stream)

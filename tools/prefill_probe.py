@@ -112,7 +112,8 @@ def main() -> int:
 
     import torch
     from chip_smoke import card_line, close
-    from prefill_ab import SHAPES, launch
+    from prefill_ab import PREFILL_SHAPES as SHAPES
+    from prefill_ab import prefill_launch as launch
     from repro_torch.kernels import _build, ref
 
     ap = argparse.ArgumentParser()
