@@ -404,10 +404,10 @@ def kernel_resources():
     """Registers, spills and static shared memory (ptxas's report of the
     build) and dynamic shared memory (the library's own count) of every
     ``flash_prefill`` and ``flash_decode`` kernel; the decode kernels' at
-    the most heads a block serves at that head size."""
+    the most heads a block serves."""
     import re
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import max_heads
+    from repro_torch.kernels.decode_attention import MAX_HEADS
 
     lib = _build.library()
     rows = []
@@ -424,9 +424,8 @@ def kernel_resources():
             row.update(softcap=bool(args[1]) if len(args) > 1 else None,
                        dynamic_smem_bytes=lib.repro_flash_prefill_smem(dtype, args[0]))
         else:
-            heads = max_heads(args[0])
-            row.update(heads=heads,
-                       dynamic_smem_bytes=lib.repro_flash_decode_smem(dtype, args[0], heads))
+            smem = lib.repro_flash_decode_smem(dtype, args[0], MAX_HEADS)
+            row.update(heads=MAX_HEADS, dynamic_smem_bytes=smem)
         rows.append(row)
     for name in ("flash_prefill", "flash_decode"):
         if not any(r["kernel"].startswith(name) for r in rows):

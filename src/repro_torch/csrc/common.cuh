@@ -94,6 +94,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
+// Four 8x8 b16 matrices from shared memory, each transposed.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const auto addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // Two 8x8 b16 matrices from shared memory, row addresses from lanes 0-15.
 __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
   const auto addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));

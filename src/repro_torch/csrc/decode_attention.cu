@@ -54,6 +54,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxCluster = 16;  // kernels/decode_attention.py MAX_CLUSTER
+constexpr int kMaxHeads = 8;     // kernels/decode_attention.py MAX_HEADS
 
 struct DecodeArgs {
   const void* q;
@@ -137,10 +138,15 @@ __device__ void cluster_merge(const DecodeArgs& a, const Work& wk, const float* 
   T* ob = static_cast<T*>(a.o) + wk.b * a.osb + wk.h0 * a.osh;
   for (int e = rank * slice + threadIdx.x; e < min(n, (rank + 1) * slice); e += blockDim.x) {
     const int r = e / HD, d = e - r * HD, j = e - rank * slice;
+    // Unrolled to the largest cluster, so that the loads issue together.
     float mx = -INFINITY;
-    for (int s = 0; s < cs; ++s) mx = fmaxf(mx, rm[s * wk.nh + r]);
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s)
+      if (s < cs) mx = fmaxf(mx, rm[s * wk.nh + r]);
     float sum = 0.f, o = 0.f;
-    for (int s = 0; s < cs; ++s) {
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s) {
+      if (s >= cs) break;
       const float ms = rm[s * wk.nh + r];
       const float f = ms == -INFINITY ? 0.f : __expf(ms - mx);
       sum = fmaf(f, rl[s * wk.nh + r], sum);
@@ -287,12 +293,6 @@ __host__ __device__ constexpr int ring_ld() {
   return HD + 8;
 }
 
-// Most query heads a block serves: kernels/decode_attention.py max_heads.
-template <int HD>
-__host__ __device__ constexpr int ring_heads() {
-  return 16 / ((HD + 63) / 64) < 8 ? 16 / ((HD + 63) / 64) : 8;
-}
-
 template <int HD>
 __host__ __device__ constexpr size_t ring_bytes() {
   return size_t(2) * kStages * ring_tile<HD>() * ring_ld<HD>() * sizeof(bf16);
@@ -301,13 +301,11 @@ __host__ __device__ constexpr size_t ring_bytes() {
 template <int HD>
 __host__ __device__ constexpr size_t bf16_smem_bytes(int heads) {
   // The ring (after the key loop it holds the warps' outputs [warps][nh][HD],
-  // f32), then f32 per warp its P [nh][keys] and
-  // alpha, m, l [nh], the block's m and l [nh] and the merge buffers (apart
-  // from the ring: other blocks store into them while this one may still
-  // be in its key loop).
-  return ring_bytes<HD>() + sizeof(float) * (kRingWarps * heads * (ring_tile<HD>() / kRingWarps) +
-                                             3 * kRingWarps * heads + 2 * heads +
-                                             merge_floats<HD>(heads));
+  // f32), then f32 per warp its max, sum and merge weight [nh], the block's
+  // max and sum [nh] and the merge buffers (apart from the ring: other
+  // blocks store into them while this one may still be in its key loop).
+  return ring_bytes<HD>() +
+         sizeof(float) * (3 * kRingWarps * heads + 2 * heads + merge_floats<HD>(heads));
 }
 
 // Starts copying keys [k0, k0 + tile) of a K or V tile into a ring stage
@@ -325,34 +323,37 @@ __device__ __forceinline__ void load_stage(bf16* dst, const bf16* src, long long
   }
 }
 
-// Each warp takes WK = tile / 4 keys of every tile.  Scores: S = Q Kᵀ on
-// mma.sync m16n8k16, the block's heads as the rows (rows 8-15 zero), the
-// warp's keys as n-tiles of 8; q lives in registers as A fragments, K as B
-// fragments straight from the ring by ldmatrix.  A lane then holds head
-// g = lane / 4's scores for keys 2 (lane % 4) + {0, 1} of each n-tile and
-// that head's running max (the quad's lanes agree) and a share of its sum.
-// PV in f32 on the CUDA cores: lane owns the bf16 pairs of dims
-// 2 lane + 64 i of every head, reads V rows from the ring and P from the
-// warp's slot in shared memory (a broadcast).  The warps merge once, after
-// the last tile, then the cluster.
+// Each warp takes WK = tile / 4 keys of every tile, and both products run
+// on mma.sync m16n8k16 with the block's heads as the rows (rows 8-15 zero).
+// Scores: S = Q Kᵀ, the warp's keys as n-tiles of 8; q lives in registers
+// as A fragments, K as B fragments straight from the ring by ldmatrix.  A
+// lane then holds head g = lane / 4's scores for keys 2 (lane % 4) + {0, 1}
+// of each n-tile, and that head's running max (the quad's lanes agree) and
+// a share of its sum.  Those scores' exps are the A fragment of O += P V
+// (the warp's keys as one k-step of 16, padded with zeros at 8 keys), V's B
+// fragments come from the ring by ldmatrix.trans, and O stays in registers
+// in the accumulator layout, so P, alpha and O never leave the warp.  P
+// keeps f32 precision: it enters as a bf16 high part and a bf16 low part
+// (the rest), two products summed in f32.  The warps merge once, after the
+// last tile, then the cluster.
 template <int HD>
 __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeArgs a) {
-  constexpr int TK = ring_tile<HD>(), LD = ring_ld<HD>(), RM = ring_heads<HD>();
-  constexpr int WK = TK / kRingWarps;  // keys per warp per tile
+  constexpr int TK = ring_tile<HD>(), LD = ring_ld<HD>();
+  constexpr int WK = TK / kRingWarps;  // keys per warp per tile: 8 or 16
   constexpr int NT = WK / 8;           // score n-tiles per warp
   constexpr int KS = HD / 16;          // k-steps of the score product
-  constexpr int NP = (HD + 63) / 64;   // dim pairs per lane
+  constexpr int NO = HD / 8;           // output n-tiles
+  static_assert(NT == 2 || NO % 4 == 0, "8-key warps take V in groups of 4 n-tiles");
   cluster_arrive_relaxed();
   const Work wk = block_work(a, static_cast<int>(cg::this_cluster().block_rank()));
   const int nh = wk.nh;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + kStages * TK * LD;
-  float* Pw = reinterpret_cast<float*>(smem_raw + ring_bytes<HD>());  // [warps][nh][WK]
-  float* Aw = Pw + kRingWarps * nh * WK;  // [warps][nh] alpha
-  float* Mw = Aw + kRingWarps * nh;       // [warps][nh]
-  float* Lw = Mw + kRingWarps * nh;       // [warps][nh]
-  float* m = Lw + kRingWarps * nh;        // the block's [nh]
+  float* Fw = reinterpret_cast<float*>(smem_raw + ring_bytes<HD>());  // [warps][nh] weights
+  float* Mw = Fw + kRingWarps * nh;  // [warps][nh]
+  float* Lw = Mw + kRingWarps * nh;  // [warps][nh]
+  float* m = Lw + kRingWarps * nh;   // the block's [nh]
   float* l = m + nh;
   float* rx = l + nh;
   float* Ow = reinterpret_cast<float*>(smem_raw);  // [warps][nh][HD], on the ring
@@ -385,14 +386,10 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
     cp_async_commit();
   }
 
-  float o[RM][NP][2];
+  float o[NO][4];  // O: rows g (and g + 8, zero), dims 8 n + 2c + {0, 1}
 #pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < NP; ++i) o[r][i][0] = o[r][i][1] = 0.f;
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_g = -INFINITY, l_g = 0.f;  // head g: running max; this lane's share of the sum
-  float* pw = Pw + warp * nh * WK;
-  float* aw = Aw + warp * nh;
 
   for (int it = 0, stage = 0; it < n_tiles; ++it, stage = stage + 1 == kStages ? 0 : stage + 1) {
     cp_async_wait<kStages - 2>();  // tile `it` has landed
@@ -411,6 +408,8 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
     const bf16* Kt = Ks + (stage * TK + warp * WK) * LD;
     const bf16* Vt = Vs + (stage * TK + warp * WK) * LD;
 
+    // Even and odd k-steps in two sums, so each chain of dependent
+    // products is half as long.
     float s[NT][4], s_odd[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -426,7 +425,7 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
         mma_bf16(s[nt], a0, kf[0], kf[1]);
         mma_bf16(s_odd[nt], a1, kf[2], kf[3]);
       }
-      if (KS % 2) {
+      if constexpr (KS % 2) {
         uint32_t kf[2];
         ldmatrix_x2(kf, Kt + (nt * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8 + (KS - 1) * 16);
         const uint32_t a0[4] = {qa[KS - 1][0], 0u, qa[KS - 1][1], 0u};
@@ -453,80 +452,72 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
     const float m_use = m_new == -INFINITY ? 0.f : m_new;
     const float alpha = __expf(m_g - m_use);
     m_g = m_new;
+    uint32_t ph[2] = {0u, 0u}, pl[2] = {0u, 0u};  // P's high and low bf16 parts
     float sum = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = __expf(s[nt][e] - m_use);
-        sum += p;
-        if (g < nh) pw[g * WK + nt * 8 + 2 * c + e] = p;
-      }
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p0 = __expf(s[nt][0] - m_use), p1 = __expf(s[nt][1] - m_use);
+      sum += p0 + p1;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+      ph[nt] = *reinterpret_cast<const uint32_t*>(&hi);
+      pl[nt] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
     l_g = l_g * alpha + sum;
-    if (g < nh && c == 0) aw[g] = alpha;
-    __syncwarp();
 
-    // PV: four keys at a time, V pairs for each, then every head's P.
+    // O = alpha O + P V.
 #pragma unroll
-    for (int j0 = 0; j0 < WK; j0 += 4) {
-      float2 v[4][NP];
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha;
+      o[n][1] *= alpha;
+    }
+    const uint32_t ah[4] = {ph[0], 0u, ph[1], 0u}, al[4] = {pl[0], 0u, pl[1], 0u};
+    if constexpr (NT == 2) {
+      // 16 keys: B fragments of keys 0-7 and 8-15, two n-tiles a load.
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + n * 8 +
+                                  (lane >> 4) * 8);
+        mma_bf16(o[n], ah, vf[0], vf[1]);
+        mma_bf16(o[n], al, vf[0], vf[1]);
+        mma_bf16(o[n + 1], ah, vf[2], vf[3]);
+        mma_bf16(o[n + 1], al, vf[2], vf[3]);
+      }
+    } else {
+      // 8 keys: keys 8-15 of the k-step are zero in P and not read from V.
 #pragma unroll
-        for (int i = 0; i < NP; ++i) {
-          const int d = 2 * lane + 64 * i;
-          v[jj][i] = d < HD ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                                  Vt + (j0 + jj) * LD + d))
-                            : make_float2(0.f, 0.f);
+      for (int n = 0; n < NO; n += 4) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + (lane & 7) * LD + (n + (lane >> 3)) * 8);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          mma_bf16(o[n + q], ah, vf[q], 0u);
+          mma_bf16(o[n + q], al, vf[q], 0u);
         }
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        if (r >= nh) break;
-        const float4 p4 = *reinterpret_cast<const float4*>(pw + r * WK + j0);
-        if (j0 == 0) {
-          const float al = aw[r];
-#pragma unroll
-          for (int i = 0; i < NP; ++i) {
-            o[r][i][0] *= al;
-            o[r][i][1] *= al;
-          }
-        }
-        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int i = 0; i < NP; ++i) {
-            o[r][i][0] = fmaf(pj[jj], v[jj][i].x, o[r][i][0]);
-            o[r][i][1] = fmaf(pj[jj], v[jj][i].y, o[r][i][1]);
-          }
       }
     }
-    __syncwarp();  // P and alpha are read before the next tile writes them
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it now holds the warps' outputs
 
-  // The warps' partial sums: head g's max and sum from its quad, each
-  // lane's dims of every head.
+  // The warps' partial sums: head g's max and sum from its quad, its
+  // outputs from the accumulators.
   l_g += __shfl_xor_sync(0xffffffffu, l_g, 1);
   l_g += __shfl_xor_sync(0xffffffffu, l_g, 2);
-  if (g < nh && c == 0) {
-    Mw[warp * nh + g] = m_g;
-    Lw[warp * nh + g] = l_g;
-  }
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    if (r >= nh) break;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const int d = 2 * lane + 64 * i;
-      if (d < HD)
-        *reinterpret_cast<float2*>(Ow + (warp * nh + r) * HD + d) =
-            make_float2(o[r][i][0], o[r][i][1]);
+  if (g < nh) {
+    if (c == 0) {
+      Mw[warp * nh + g] = m_g;
+      Lw[warp * nh + g] = l_g;
     }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(Ow + (warp * nh + g) * HD + n * 8 + 2 * c) =
+          make_float2(o[n][0], o[n][1]);
   }
   __syncthreads();
-  // Each warp's weight for each head, in place of its alpha: exp(m_w - max).
+  // Each warp's weight for each head: exp(m_w - max).
   for (int r = threadIdx.x; r < nh; r += kRingThreads) {
     float mx = -INFINITY;
 #pragma unroll
@@ -536,7 +527,7 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
     for (int q = 0; q < kRingWarps; ++q) {
       const float mq = Mw[q * nh + r];
       const float f = mq == -INFINITY ? 0.f : __expf(mq - mx);
-      Aw[q * nh + r] = f;
+      Fw[q * nh + r] = f;
       sum = fmaf(f, Lw[q * nh + r], sum);
     }
     m[r] = mx;
@@ -549,7 +540,7 @@ __global__ void __launch_bounds__(kRingThreads) flash_decode_bf16_kernel(DecodeA
         const int r = e / HD;
         float o = 0.f;
 #pragma unroll
-        for (int q = 0; q < kRingWarps; ++q) o = fmaf(Aw[q * nh + r], Ow[q * nh * HD + e], o);
+        for (int q = 0; q < kRingWarps; ++q) o = fmaf(Fw[q * nh + r], Ow[q * nh * HD + e], o);
         return o;
       },
       rx);
@@ -697,7 +688,7 @@ extern "C" int repro_flash_decode(int dtype, int hd, const void* q, const void* 
   switch (hd) {
 #define X(HD)                                                     \
   case HD:                                                        \
-    if (tile != tile_keys<HD>(dtype) || heads > ring_heads<HD>()) \
+    if (tile != tile_keys<HD>(dtype) || heads > kMaxHeads) \
       return cudaErrorInvalidValue;                               \
     return launch<HD>(dtype, a, cluster, K, B, st);
     REPRO_DECODE_HEAD_DIMS(X)

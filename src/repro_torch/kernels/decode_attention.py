@@ -20,6 +20,7 @@ from . import _build
 from .flash_attention import DTYPES, check_operands
 
 MAX_CLUSTER = 16  # blocks in one cluster (above 8 with the non-portable attribute)
+MAX_HEADS = 8  # query heads a block serves at most: the live rows of one m16 product
 F32_TILE = 64  # keys per tile of the f32 kernel
 
 
@@ -53,12 +54,6 @@ def tile_keys(hd: int, f32: bool = False) -> int:
     return F32_TILE if f32 or hd <= 64 else 32
 
 
-def max_heads(hd: int) -> int:
-    """Query heads one block serves at most: each of a warp's lanes keeps
-    heads * ceil(hd / 64) * 2 f32 sums, held to 32."""
-    return min(8, 16 // math.ceil(hd / 64))
-
-
 def plan(B: int, K: int, q_per_kv: int, S: int, hd: int, window: Optional[int],
          resident: Callable[[int, int], int], f32: bool = False) -> Plan:
     """The split plan.  ``resident(cluster, heads)`` is how many clusters of
@@ -79,7 +74,7 @@ def plan(B: int, K: int, q_per_kv: int, S: int, hd: int, window: Optional[int],
     (first = len - window on local layers, else 0) fall in splits
     [first + i * chunk, first + (i + 1) * chunk) of ranks i < cluster:
     ``split_keys``."""
-    groups = math.ceil(q_per_kv / max_heads(hd))
+    groups = math.ceil(q_per_kv / MAX_HEADS)
     heads = math.ceil(q_per_kv / groups)
     groups = math.ceil(q_per_kv / heads)  # no group left without a head
     tile = tile_keys(hd, f32)

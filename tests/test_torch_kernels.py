@@ -146,7 +146,7 @@ def check_plan(B, K, R, S, hd, window, f32):
     p = dec.plan(B, K, R, S, hd, window, h100_resident, f32=f32)
     assert 1 <= p.cluster <= dec.MAX_CLUSTER
     assert p.cluster == 1 or B * K * p.groups <= h100_resident(p.cluster, p.heads)
-    assert p.heads <= dec.max_heads(hd) and (p.groups - 1) * p.heads < R <= p.groups * p.heads
+    assert p.heads <= dec.MAX_HEADS and (p.groups - 1) * p.heads < R <= p.groups * p.heads
     assert p.tile == dec.tile_keys(hd, f32)
     for length in range(1, S + 1):
         first = max(0, length - window) if window else 0

@@ -83,13 +83,10 @@ PATCHES = [
      "    const int kw0 ="),
     ("    // Online softmax of head g",
      "    pr_t[2] += clock64() - pr_c;\n    pr_c = clock64();\n    // Online softmax of head g"),
-    ("    // PV: four keys at a time",
-     "    pr_t[3] += clock64() - pr_c;\n    pr_c = clock64();\n    // PV: four keys at a time"),
-    ("    __syncwarp();  // P and alpha are read before the next tile writes them\n",
-     "    __syncwarp();  // P and alpha are read before the next tile writes them\n"
-     "    pr_t[4] += clock64() - pr_c;\n"),
-    ("  cp_async_wait<0>();\n  __syncthreads();  // the ring is free",
-     "  const long long pr_c2 = clock64();\n"
+    ("    // O = alpha O + P V.\n",
+     "    pr_t[3] += clock64() - pr_c;\n    pr_c = clock64();\n    // O = alpha O + P V.\n"),
+    ("    }\n  }\n  cp_async_wait<0>();\n  __syncthreads();  // the ring is free",
+     "    }\n    pr_t[4] += clock64() - pr_c;\n  }\n  const long long pr_c2 = clock64();\n"
      "  cp_async_wait<0>();\n  __syncthreads();  // the ring is free"),
     ("  cluster_merge<bf16, HD>(\n      a, wk,",
      "  const long long pr_c3 = clock64();\n  long long pr_mg[4];\n"
