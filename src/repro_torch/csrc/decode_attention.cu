@@ -16,25 +16,30 @@
 // What the design does about it:
 //   * one launch: the blocks that split one (batch, KV head) pair's keys
 //     form a thread-block cluster (flash-decoding with the merge on chip).
-//     Each block keeps its split's softmax max, sum and unnormalised output
-//     in shared memory; after cluster.sync() every block merges a slice of
-//     the heads' outputs from all the cluster's blocks through distributed
-//     shared memory and writes it.  No scratch in device memory, no second
-//     kernel.  The split plan (kernels/decode_attention.py, ``plan``) sizes
-//     the clusters so that the grid holds about two blocks per SM;
-//   * a block serves a group of its KV head's query heads from one read of
-//     each K/V tile, so the cache is read once per group (once in all at
-//     the configs' q_per_kv);
+//     Each block stores its split's softmax max, sum and unnormalised output
+//     into the shared memory of the blocks that own each slice of the
+//     output (distributed shared memory), meets them at one cluster barrier,
+//     and merges and writes its own slice.  No scratch in device memory, no
+//     second kernel.  The split plan (kernels/decode_attention.py, ``plan``)
+//     takes the largest cluster of which the card holds the whole grid at
+//     once: a block's fixed latency (its row's length, the first loads, the
+//     merge) is paid once, not once a wave;
+//   * a block serves a group of up to 8 of its KV head's query heads from
+//     one read of each K/V tile, so the cache is read once per group (once
+//     in all at the configs' q_per_kv);
 //   * bf16: K and V stream through a 4-stage ring of bf16 tiles in shared
 //     memory, filled by 16-byte cp.async, the next three tiles in flight
 //     while one is consumed; the block's barrier at each stage is the only
 //     one in the key loop;
 //   * every warp is busy at any q_per_kv: the four warps split each tile's
-//     keys, score them for all the block's heads at once on mma.sync (q in
-//     registers; the heads are the product's rows, so MHA wastes rows of a
-//     tensor-core product, not threads) and keep their own softmax state
-//     and f32 outputs in registers; PV stays f32 on the CUDA cores, as the
-//     reference keeps P in f32.  The warps merge once, after the last tile;
+//     keys, and both products run on mma.sync with the block's heads as the
+//     rows (so MHA leaves rows of a tensor-core product empty, not threads
+//     idle).  q, the softmax state, P and the f32 outputs stay in each
+//     warp's registers; P enters PV as a bf16 high and low part, which keeps
+//     the reference's f32 P.  The warps merge once, after the last tile;
+//   * f32 keeps the first version's kernel (K and V staged as f32 in shared
+//     memory, one thread per (head, key) and per (head, dim)) with the same
+//     cluster merge;
 //   * the cache is read in place in the model's (B, S, K, hd) layout through
 //     strides; lengths are read from device memory, so the host never
 //     waits; only [len - window, len) (local layers) or [0, len) is read, and
@@ -88,7 +93,8 @@ __device__ __forceinline__ Work block_work(const DecodeArgs& a, int rank) {
 }
 
 // Floats of a block's merge buffers: its slice of every rank's outputs,
-// [cluster][ceil(nh * HD / cluster)], and every rank's max and sum [2][cluster][nh].
+// [cluster][ceil(nh * HD / cluster)], and every rank's max and sum
+// [2][cluster][nh].
 template <int HD>
 __host__ __device__ constexpr int merge_floats(int heads) {
   return heads * HD + kMaxCluster + 2 * kMaxCluster * heads;
