@@ -403,8 +403,10 @@ def kernel_phase(B=4, S=512, H=32, K=8, hd=160, gen_steps=32):
 def kernel_resources():
     """Registers, spills and static shared memory (ptxas's report of the
     build) and dynamic shared memory (the library's own count) of every
-    ``flash_prefill`` and ``flash_decode`` kernel; the decode kernels' at
-    the most heads a block serves."""
+    ``flash_prefill``, ``flash_decode`` and ``ssd_intra_chunk`` kernel; the
+    decode kernels' at the most heads a block serves.  Raises if the bf16
+    SSD kernel at the served models' sizes, (hd, N) = (64, 128) and
+    (64, 64), spills."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import MAX_HEADS
@@ -412,24 +414,33 @@ def kernel_resources():
     lib = _build.library()
     rows = []
     for entry in _build.resources():
-        m = re.search(r"(flash_(prefill|decode)_[a-z0-9]+_kernel)", entry["name"])
+        m = re.search(r"((flash_prefill|flash_decode|ssd_intra_chunk)_[a-z0-9]+_kernel)",
+                      entry["name"])
         if not m:
             continue
         args = _build.template_args(entry["name"])
         dtype = 0 if m.group(1).endswith("_f32_kernel") else 1
-        row = dict(kernel=m.group(1), hd=args[0], registers=entry["registers"],
-                   spill_store_bytes=entry["spill_stores"],
+        row = dict(kernel=m.group(1), family=m.group(2), hd=args[0],
+                   registers=entry["registers"], spill_store_bytes=entry["spill_stores"],
                    spill_load_bytes=entry["spill_loads"], static_smem_bytes=entry["smem"])
-        if m.group(2) == "prefill":
+        if m.group(2) == "flash_prefill":
             row.update(softcap=bool(args[1]) if len(args) > 1 else None,
                        dynamic_smem_bytes=lib.repro_flash_prefill_smem(dtype, args[0]))
-        else:
+        elif m.group(2) == "flash_decode":
             smem = lib.repro_flash_decode_smem(dtype, args[0], MAX_HEADS)
             row.update(heads=MAX_HEADS, dynamic_smem_bytes=smem)
+        else:
+            row.update(n_state=args[1],
+                       dynamic_smem_bytes=lib.repro_ssd_intra_chunk_smem(dtype, *args))
         rows.append(row)
-    for name in ("flash_prefill", "flash_decode"):
-        if not any(r["kernel"].startswith(name) for r in rows):
+    for name in ("flash_prefill", "flash_decode", "ssd_intra_chunk"):
+        if not any(r["family"] == name for r in rows):
             raise AssertionError(f"ptxas reported no {name} kernel")
+    for sizes in ((64, 128), (64, 64)):
+        ssd = [r for r in rows if r["kernel"] == "ssd_intra_chunk_bf16_kernel"
+               and (r["hd"], r["n_state"]) == sizes]
+        if not ssd or ssd[0]["spill_store_bytes"] or ssd[0]["spill_load_bytes"]:
+            raise AssertionError(f"bf16 ssd_intra_chunk at (hd, N) = {sizes}: {ssd}")
     return rows
 
 
@@ -714,7 +725,7 @@ def main() -> int:
                        text=True).stdout.strip().splitlines()[-1])
     log(f"build: kernels built in {_build.timed_build():.1f} s")
     for row in kernel_resources():
-        log(f"ptxas {'_'.join(row['kernel'].split('_')[:2])}:", json.dumps(row))
+        log(f"ptxas {row['family']}:", json.dumps(row))
 
     checked = {**kernel_phase(), **ssd_phase()}
     paths = {arch: slice_phase(card, arch, spec) for arch, spec in SLICES.items()}

@@ -15,9 +15,11 @@
 // heads of 64, N=128, Q=256, bf16 in, f32 out) one launch moves ~173 MB
 // (the f32 outputs are most of it) and ~21.5 GFLOP in its causal products
 // (the lower triangle of C B^T and of its product with X, and the state
-// product), so the card's memory bounds it (~0.05 ms at 3.35 TB/s).
+// product), so the card's memory bounds it (~0.05 ms at 3.35 TB/s).  On
+// the CUDA cores in f32 those products alone would take ~0.18 ms at their
+// peak rate, so the bf16 kernel runs all three on the tensor cores.
 //
-// What the design does about it, and what it leaves for later:
+// What the design does about it:
 //   * one block per (chunk, head, batch); the Q x Q scores (256 KB in f32)
 //     never exist whole: the block walks strips of 64 query rows and, for
 //     each, the key strips at or left of the diagonal, so tiles above the
@@ -29,28 +31,38 @@
 //   * strips are read 16 bytes a load, every load of a strip in flight
 //     before the first store (the rows of x, B and C are 16-byte aligned);
 //   * the mask is applied before exp, so exp never sees i < j (no inf * 0);
-//   * bf16 runs C B^T on the tensor cores (mma.sync m16n8k16, f32
-//     accumulate, exact products as in the reference); the masked, decayed
-//     scores stay in f32 and their product with X, and the state product,
-//     run on the CUDA cores in f32, so nothing the reference keeps in f32
-//     is rounded to bf16.  f32 runs everything on the CUDA cores;
+//   * bf16 (ssd_intra_chunk_bf16_kernel) runs every product on the tensor
+//     cores (mma.sync m16n8k16, f32 accumulate).  C B^T is exact, as in the
+//     reference.  Each warp keeps its 16 rows of masked, decayed f32 scores
+//     in the accumulator registers, which are already the A fragments of
+//     the product with X; each score is split into a bf16 high part and the
+//     bf16 rounding of the rest, and y += hi X + lo X, with X's fragments
+//     read from a bf16 strip by ldmatrix.trans.  The state product runs as
+//     state^T = (X * decay)^T B, the f32 X * decay split the same way and
+//     staged in the shared memory the C strip frees.  The two parts carry
+//     ~16 bits of each f32 operand, where one bf16 rounding (8 bits) would
+//     fail the 1e-3 tolerance ~20x over at mamba2's chunk;
+//   * f32 (ssd_intra_chunk_f32_kernel) runs everything on the CUDA cores;
 //   * outputs are f32, contiguous: y_diag (B, S, nh, hd) in the model's
 //     layout, states (B, nC, nh, hd, N) in the layout of the recurrent
 //     state, cum (B, S, nh) in a's layout.
-// Left for later: wgmma and TMA, and sharing C B^T between the heads of a
-// batch row (it is recomputed per head here).
+// Left for later: overlapping the strip loads with the products (each key
+// strip of B and X is loaded behind a barrier, and reloaded by every query
+// strip and again by the state pass), sharing C B^T between the heads of a
+// batch row (it is recomputed per head here), wgmma and TMA.
 
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 128;  // four warps; each owns 16 rows of a strip
 constexpr int kR = 64;         // rows of a strip, query and key alike
-constexpr int kLdp = kR + 8;   // padded row of the score tile (conflict-free float2 stores)
+constexpr int kLdp = kR + 8;   // padded row of the f32 kernel's score tile (conflict-free float2 stores)
 constexpr int kMaxQ = 256;
 
 struct SsdArgs {
@@ -64,14 +76,6 @@ struct SsdArgs {
   int S, nh, Q;
   long long xsb, xss, xsh, asb, ass, ash, bsb, bss, csb, css;
 };
-
-// Row of a (kR, N) strip of B or C in shared memory: bf16 rows padded so
-// the 8 rows of an ldmatrix hit distinct banks, f32 rows so 32 lanes
-// reading 32 rows hit 32 banks.
-template <typename T, int N>
-__host__ __device__ constexpr int strip_ld() {
-  return std::is_same<T, float>::value ? N + 1 : N + 8;
-}
 
 // Reads rows [r0, r0 + kR) of a row-major (rows, W) matrix in T (row
 // stride ld elements, 16-byte aligned rows) 16 bytes at a time, all loads
@@ -98,44 +102,13 @@ __device__ __forceinline__ void load_strip(const T* src, long long ld, int r0, i
   }
 }
 
-// The 16 / sizeof(T) elements of a 16-byte piece, widened to f32.
-template <typename T>
-__device__ __forceinline__ void widen(const uint4& v, float* out) {
-  Vec16<T>::load(reinterpret_cast<const T*>(&v), out);
-}
-
-template <typename T, int HD, int N>
-constexpr size_t smem_bytes() {
-  // X strip f32, score tile f32, cum, then the C and B strips in T (reused
-  // as one f32 (kR, N) strip of decayed B by the state pass).
-  return sizeof(float) * (kR * HD + kR * kLdp + kMaxQ) + 2 * sizeof(T) * kR * strip_ld<T, N>();
-}
-
-template <typename T, int HD, int N>
-__global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(SsdArgs a) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int LDN = strip_ld<T, N>();
-  constexpr int NC = (HD + 31) / 32;  // output columns per lane
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Xs = reinterpret_cast<float*>(smem_raw);
-  float* Ps = Xs + kR * HD;
-  float* cum = Ps + kR * kLdp;
-  T* Cs = reinterpret_cast<T*>(cum + kMaxQ);
-  T* Bs = Cs + kR * LDN;
-  float* Bd = reinterpret_cast<float*>(Cs);  // the state pass's (kR, N) strip
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int chunk = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
-  const int Q = a.Q, s0 = chunk * Q;
-  const T* xb = static_cast<const T*>(a.x) + bi * a.xsb + h * a.xsh + s0 * a.xss;
-  const T* bb = static_cast<const T*>(a.b) + bi * a.bsb + s0 * a.bss;
-  const T* cb = static_cast<const T*>(a.c) + bi * a.csb + s0 * a.css;
-  const float* ab = a.a + bi * a.asb + h * a.ash + s0 * a.ass;
-  const long long row0 = static_cast<long long>(bi) * a.S + s0;  // first output row
-
-  // --- cum: warp 0 scans the chunk's log decays, up to 8 per lane -------
-  if (warp == 0) {
+// The cumulative log decays of the block's chunk: warp 0 scans up to 8 a
+// lane into cum (shared memory); then every thread writes them out.
+__device__ __forceinline__ void chunk_cumsum(const SsdArgs& a, const float* ab, long long row0,
+                                             int h, float* cum) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int Q = a.Q;
+  if (tid < 32) {
     const int per = (Q + 31) / 32;
     float v[kMaxQ / 32], run = 0.f;
 #pragma unroll
@@ -159,28 +132,52 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(SsdArgs a) {
   }
   __syncthreads();
   for (int i = tid; i < Q; i += kThreads) a.cum[(row0 + i) * a.nh + h] = cum[i];
+}
 
-  constexpr int V = 16 / sizeof(T);
-  auto load_x = [&](int j0) {  // the X strip, widened to f32
-    load_strip<T, HD>(xb, a.xss, j0, Q, [&](int r, int c, const uint4& v) {
-      float f[V];
-      widen<T>(v, f);
-#pragma unroll
-      for (int q = 0; q < V; q += 4)
-        *reinterpret_cast<float4*>(Xs + r * HD + c + q) = make_float4(f[q], f[q + 1], f[q + 2], f[q + 3]);
+// ---------------------------------------------------------------------------
+// f32: every product on the CUDA cores.
+// ---------------------------------------------------------------------------
+template <int HD, int N>
+constexpr size_t f32_smem_bytes() {
+  // X strip, score tile, cum, then the C and B strips in odd-strided rows
+  // (32 lanes reading 32 rows hit 32 banks; reused as one (kR, N) strip of
+  // decayed B by the state pass).
+  return sizeof(float) * (kR * HD + kR * kLdp + kMaxQ + 2 * kR * (N + 1));
+}
+
+template <int HD, int N>
+__global__ void __launch_bounds__(kThreads) ssd_intra_chunk_f32_kernel(SsdArgs a) {
+  constexpr int LDN = N + 1;
+  constexpr int NC = (HD + 31) / 32;  // output columns per lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Xs = reinterpret_cast<float*>(smem_raw);
+  float* Ps = Xs + kR * HD;
+  float* cum = Ps + kR * kLdp;
+  float* Cs = cum + kMaxQ;
+  float* Bs = Cs + kR * LDN;
+  float* Bd = Cs;  // the state pass's (kR, N) strip
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int Q = a.Q, s0 = chunk * Q;
+  const float* xb = static_cast<const float*>(a.x) + bi * a.xsb + h * a.xsh + s0 * a.xss;
+  const float* bb = static_cast<const float*>(a.b) + bi * a.bsb + s0 * a.bss;
+  const float* cb = static_cast<const float*>(a.c) + bi * a.csb + s0 * a.css;
+  const float* ab = a.a + bi * a.asb + h * a.ash + s0 * a.ass;
+  const long long row0 = static_cast<long long>(bi) * a.S + s0;  // first output row
+
+  chunk_cumsum(a, ab, row0, h, cum);
+
+  auto load_x = [&](int j0) {
+    load_strip<float, HD>(xb, a.xss, j0, Q, [&](int r, int c, const uint4& v) {
+      *reinterpret_cast<uint4*>(Xs + r * HD + c) = v;
     });
   };
-  // A strip of B or C as it is (bf16: 16-byte stores into the padded rows)
-  // or, in f32, element by element into the odd-strided rows.
-  auto load_bc = [&](T* dst, const T* src, long long ld, int r0) {
-    load_strip<T, N>(src, ld, r0, Q, [&](int r, int c, const uint4& v) {
-      if constexpr (kBf16) {
-        *reinterpret_cast<uint4*>(dst + r * LDN + c) = v;
-      } else {
-        const float* f = reinterpret_cast<const float*>(&v);
+  auto load_bc = [&](float* dst, const float* src, long long ld, int r0) {
+    load_strip<float, N>(src, ld, r0, Q, [&](int r, int c, const uint4& v) {
+      const float* f = reinterpret_cast<const float*>(&v);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) dst[r * LDN + c + q] = f[q];
-      }
+      for (int q = 0; q < 4; ++q) dst[r * LDN + c + q] = f[q];
     });
   };
 
@@ -203,61 +200,27 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(SsdArgs a) {
 
       // Scores C B^T for this warp's 16 rows and the strip's 64 keys, masked
       // and decayed, into the warp's rows of Ps.
-      if constexpr (kBf16) {
-        float s[kR / 8][4];
+      float s[16][2];
 #pragma unroll
-        for (int n = 0; n < kR / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < N; kk += 16) {
-          uint32_t ca[4];
-          ldmatrix_x4(ca, Cs + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN + kk +
-                              (lane >> 4) * 8);
-#pragma unroll
-          for (int n = 0; n < kR / 8; n += 2) {
-            uint32_t bf[4];
-            ldmatrix_x4(bf, Bs + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LDN + kk +
-                                ((lane >> 3) & 1) * 8);
-            mma_bf16(s[n], ca, bf[0], bf[1]);
-            mma_bf16(s[n + 1], ca, bf[2], bf[3]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < kR / 8; ++n) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = wr0 + g + 8 * half, i = i0 + r;
-            float out[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int j = j0 + n * 8 + 2 * t + e;
-              out[e] = (i < Q && i >= j) ? s[n][2 * half + e] * expf(cum[i] - cum[j]) : 0.f;
-            }
-            *reinterpret_cast<float2*>(Ps + r * kLdp + n * 8 + 2 * t) = make_float2(out[0], out[1]);
-          }
-        }
-      } else {
-        float s[16][2];
-#pragma unroll
-        for (int r = 0; r < 16; ++r) s[r][0] = s[r][1] = 0.f;
+      for (int r = 0; r < 16; ++r) s[r][0] = s[r][1] = 0.f;
 #pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          const float b0 = Bs[lane * LDN + n], b1 = Bs[(lane + 32) * LDN + n];
-#pragma unroll
-          for (int r = 0; r < 16; ++r) {
-            const float cv = Cs[(wr0 + r) * LDN + n];
-            s[r][0] = fmaf(cv, b0, s[r][0]);
-            s[r][1] = fmaf(cv, b1, s[r][1]);
-          }
-        }
+      for (int n = 0; n < N; ++n) {
+        const float b0 = Bs[lane * LDN + n], b1 = Bs[(lane + 32) * LDN + n];
 #pragma unroll
         for (int r = 0; r < 16; ++r) {
-          const int i = i0 + wr0 + r;
+          const float cv = Cs[(wr0 + r) * LDN + n];
+          s[r][0] = fmaf(cv, b0, s[r][0]);
+          s[r][1] = fmaf(cv, b1, s[r][1]);
+        }
+      }
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = j0 + lane + 32 * e;
-            Ps[(wr0 + r) * kLdp + lane + 32 * e] =
-                (i < Q && i >= j) ? s[r][e] * expf(cum[i] - cum[j]) : 0.f;
-          }
+      for (int r = 0; r < 16; ++r) {
+        const int i = i0 + wr0 + r;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + lane + 32 * e;
+          Ps[(wr0 + r) * kLdp + lane + 32 * e] =
+              (i < Q && i >= j) ? s[r][e] * expf(cum[i] - cum[j]) : 0.f;
         }
       }
       __syncwarp();  // a warp writes and reads only its own rows of Ps
@@ -314,14 +277,11 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(SsdArgs a) {
   for (int i = tid; i < Q; i += kThreads) decay[i] = expf(cum_end - cum[i]);
   for (int j0 = 0; j0 < Q; j0 += kR) {
     __syncthreads();  // the decays are written; the strips of the previous pass are consumed
-    load_strip<T, N>(bb, a.bss, j0, Q, [&](int r, int c, const uint4& v) {
-      float f[V];
-      widen<T>(v, f);
+    load_strip<float, N>(bb, a.bss, j0, Q, [&](int r, int c, const uint4& v) {
+      const float* f = reinterpret_cast<const float*>(&v);
       const float d = j0 + r < Q ? decay[j0 + r] : 0.f;
-#pragma unroll
-      for (int q = 0; q < V; q += 4)
-        *reinterpret_cast<float4*>(Bd + r * N + c + q) =
-            make_float4(f[q] * d, f[q + 1] * d, f[q + 2] * d, f[q + 3] * d);
+      *reinterpret_cast<float4*>(Bd + r * N + c) =
+          make_float4(f[0] * d, f[1] * d, f[2] * d, f[3] * d);
     });
     load_x(j0);
     __syncthreads();
@@ -352,31 +312,254 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(SsdArgs a) {
   }
 }
 
-template <typename T, int HD, int N>
-cudaError_t launch(const SsdArgs& a, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, HD, N>();
-  cudaError_t err = allow_smem(ssd_intra_chunk_kernel<T, HD, N>, smem);
+// ---------------------------------------------------------------------------
+// bf16: every product on the tensor cores, the f32 operands as bf16 hi + lo.
+// ---------------------------------------------------------------------------
+
+// bf16 rows padded by 8 elements, so the 8 rows of an ldmatrix hit 8
+// distinct 16-byte bank groups.
+template <int W>
+__host__ __device__ constexpr int bf16_ld() {
+  return W + 8;
+}
+
+template <int HD, int N>
+__host__ __device__ constexpr int c_region() {  // the C strip, or X * decay's low part
+  return kR * (bf16_ld<N>() > bf16_ld<HD>() ? bf16_ld<N>() : bf16_ld<HD>());
+}
+
+template <int HD, int N>
+constexpr size_t bf16_smem_bytes() {
+  // cum, then the C strip (the state pass's low part of X * decay), the B
+  // strip, and the X strip (the state pass's high part of X * decay).
+  return sizeof(float) * kMaxQ +
+         sizeof(bf16) * (c_region<HD, N>() + kR * bf16_ld<N>() + kR * bf16_ld<HD>());
+}
+
+// The f32 pair (x0, x1) as its bf16 rounding (hi) and the bf16 rounding of
+// what that leaves (lo), each packed as the two halves of a fragment
+// register, x0 in the low half.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <int HD, int N>
+__global__ void __launch_bounds__(kThreads) ssd_intra_chunk_bf16_kernel(SsdArgs a) {
+  constexpr int LDN = bf16_ld<N>(), LDX = bf16_ld<HD>();
+  constexpr int NO = HD / 8;       // n-tiles of a warp's 16 rows of y
+  constexpr int KS = kR / 16;      // k-steps of a key strip
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* cum = reinterpret_cast<float*>(smem_raw);
+  bf16* Cs = reinterpret_cast<bf16*>(cum + kMaxQ);
+  bf16* Bs = Cs + c_region<HD, N>();
+  bf16* Xs = Bs + kR * LDN;
+  bf16* Xh = Xs;  // the state pass's X * decay, high part
+  bf16* Xl = Cs;  // ... and low part
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunk = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int Q = a.Q, s0 = chunk * Q;
+  const bf16* xb = static_cast<const bf16*>(a.x) + bi * a.xsb + h * a.xsh + s0 * a.xss;
+  const bf16* bb = static_cast<const bf16*>(a.b) + bi * a.bsb + s0 * a.bss;
+  const bf16* cb = static_cast<const bf16*>(a.c) + bi * a.csb + s0 * a.css;
+  const float* ab = a.a + bi * a.asb + h * a.ash + s0 * a.ass;
+  const long long row0 = static_cast<long long>(bi) * a.S + s0;  // first output row
+
+  chunk_cumsum(a, ab, row0, h, cum);
+
+  auto store_to = [](bf16* dst, int ld) {
+    return [=](int r, int c, const uint4& v) { *reinterpret_cast<uint4*>(dst + r * ld + c) = v; };
+  };
+
+  // --- y_diag: strips of 64 query rows, key strips at or left of the diagonal
+  for (int i0 = 0; i0 < Q; i0 += kR) {
+    __syncthreads();  // every warp is done with the previous C strip
+    load_strip<bf16, N>(cb, a.css, i0, Q, store_to(Cs, LDN));
+    const int wr0 = warp * 16;  // this warp's first row in the strip
+    const int r_lo = i0 + wr0 + g;  // the chunk rows of this thread's accumulators: r_lo, r_lo + 8
+    float o[NO][4] = {};
+
+    for (int j0 = 0; j0 <= i0; j0 += kR) {
+      __syncthreads();  // every warp is done with the previous B and X strips
+      load_strip<bf16, N>(bb, a.bss, j0, Q, store_to(Bs, LDN));
+      load_strip<bf16, HD>(xb, a.xss, j0, Q, store_to(Xs, LDX));
+      __syncthreads();
+      if (i0 + wr0 >= Q) continue;  // every row of this warp is past the chunk
+      // k-steps of 16 keys that hold a key at or before the warp's last row
+      const int kend = j0 == i0 ? warp + 1 : KS;
+
+      // Scores C B^T for the warp's 16 rows and the strip's 64 keys.
+      float s[kR / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < N; kk += 16) {
+        uint32_t ca[4];
+        ldmatrix_x4(ca, Cs + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN + kk +
+                            (lane >> 4) * 8);
+#pragma unroll
+        for (int n = 0; n < kR / 8; n += 2) {
+          if (n / 2 >= kend) break;
+          uint32_t bf[4];
+          ldmatrix_x4(bf, Bs + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LDN + kk +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16(s[n], ca, bf[0], bf[1]);
+          mma_bf16(s[n + 1], ca, bf[2], bf[3]);
+        }
+      }
+
+      // Masked (before exp) and decayed, in place.
+      const float ci[2] = {r_lo < Q ? cum[r_lo] : 0.f, r_lo + 8 < Q ? cum[r_lo + 8] : 0.f};
+#pragma unroll
+      for (int n = 0; n < kR / 8; ++n) {
+        if (n / 2 >= kend) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = r_lo + 8 * (e >> 1), j = j0 + n * 8 + 2 * t + (e & 1);
+          s[n][e] = (i < Q && i >= j) ? s[n][e] * expf(ci[e >> 1] - cum[j]) : 0.f;
+        }
+      }
+
+      // o += P X: k-step kk's A fragment is score n-tiles 2kk and 2kk + 1,
+      // as hi and lo; X's B fragments two n-tiles a load.
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        if (kk >= kend) break;
+        uint32_t ah[4], al[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t xf[4];
+          ldmatrix_x4_trans(xf, Xs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDX +
+                                    n * 8 + (lane >> 4) * 8);
+          mma_bf16(o[n], ah, xf[0], xf[1]);
+          mma_bf16(o[n], al, xf[0], xf[1]);
+          mma_bf16(o[n + 1], ah, xf[2], xf[3]);
+          mma_bf16(o[n + 1], al, xf[2], xf[3]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = r_lo + 8 * half;
+      if (i >= Q) continue;
+      float* yr = a.y + ((row0 + i) * a.nh + h) * HD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(yr + n * 8) = make_float2(o[n][2 * half], o[n][2 * half + 1]);
+    }
+  }
+
+  // --- state^T (hd, N) = (X * decay)^T B over the chunk's keys, decay =
+  // exp(cum[Q-1] - cum).  A warp owns 16 rows of hd and pairs of 8-column
+  // n-tiles: all N / 16 pairs at hd 64, a quarter of them at hd 16.
+  constexpr int MT = HD / 16, WN = 4 / MT, NP = N / 16, PW = (NP + WN - 1) / WN;
+  static_assert(MT * WN == 4, "four warps over the state's row tiles");
+  const int m0 = (warp % MT) * 16, p0 = (warp / MT) * PW;
+  float st[2 * PW][4] = {};
+  const float cum_end = cum[Q - 1];
+  __syncthreads();  // cum_end is read, and the y pass is done with cum and the strips
+  float* decay = cum;  // cum[i] becomes exp(cum[Q-1] - cum[i]), the decay to the chunk's end
+  for (int i = tid; i < Q; i += kThreads) decay[i] = expf(cum_end - cum[i]);
+  for (int j0 = 0; j0 < Q; j0 += kR) {
+    __syncthreads();  // the decays are written; the strips of the previous pass are consumed
+    load_strip<bf16, N>(bb, a.bss, j0, Q, store_to(Bs, LDN));
+    load_strip<bf16, HD>(xb, a.xss, j0, Q, [&](int r, int c, const uint4& v) {
+      float f[8];
+      Vec16<bf16>::load(reinterpret_cast<const bf16*>(&v), f);
+      const float d = j0 + r < Q ? decay[j0 + r] : 0.f;
+      uint4 hi, lo;
+      split_bf16(f[0] * d, f[1] * d, hi.x, lo.x);
+      split_bf16(f[2] * d, f[3] * d, hi.y, lo.y);
+      split_bf16(f[4] * d, f[5] * d, hi.z, lo.z);
+      split_bf16(f[6] * d, f[7] * d, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(Xh + r * LDX + c) = hi;
+      *reinterpret_cast<uint4*>(Xl + r * LDX + c) = lo;
+    });
+    __syncthreads();
+    const int ksteps = (min(kR, Q - j0) + 15) / 16;  // rows past Q are zero
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk >= ksteps) break;
+      // A = (X * decay)^T: rows of hd, columns of keys, read transposed from
+      // the (key, hd) strips.
+      const int arow = kk * 16 + (lane & 7) + (lane >> 4) * 8, acol = m0 + ((lane >> 3) & 1) * 8;
+      uint32_t ah[4], al[4];
+      ldmatrix_x4_trans(ah, Xh + arow * LDX + acol);
+      ldmatrix_x4_trans(al, Xl + arow * LDX + acol);
+#pragma unroll
+      for (int pp = 0; pp < PW; ++pp) {
+        const int p = p0 + pp;
+        if (p >= NP) break;
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, Bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN +
+                                  p * 16 + (lane >> 4) * 8);
+        mma_bf16(st[2 * pp], ah, bf[0], bf[1]);
+        mma_bf16(st[2 * pp], al, bf[0], bf[1]);
+        mma_bf16(st[2 * pp + 1], ah, bf[2], bf[3]);
+        mma_bf16(st[2 * pp + 1], al, bf[2], bf[3]);
+      }
+    }
+  }
+  float* sb = a.st + ((static_cast<long long>(bi) * (a.S / Q) + chunk) * a.nh + h) * HD * N;
+#pragma unroll
+  for (int pp = 0; pp < PW; ++pp) {
+    const int p = p0 + pp;
+    if (p >= NP) break;
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(sb + (m0 + g + 8 * half) * N + p * 16 + q * 8 + 2 * t) =
+            make_float2(st[2 * pp + q][2 * half], st[2 * pp + q][2 * half + 1]);
+  }
+}
+
+template <typename Kernel>
+cudaError_t start(Kernel kernel, size_t smem, const SsdArgs& a, int B, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.S / a.Q, a.nh, B);
-  ssd_intra_chunk_kernel<T, HD, N><<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<dim3(a.S / a.Q, a.nh, B), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_sizes(int hd, int n, const SsdArgs& a, int B, cudaStream_t stream) {
-  switch (hd * 1000 + n) {
-    case 16016: return launch<T, 16, 16>(a, B, stream);
-    case 16064: return launch<T, 16, 64>(a, B, stream);
-    case 16128: return launch<T, 16, 128>(a, B, stream);
-    case 64016: return launch<T, 64, 16>(a, B, stream);
-    case 64064: return launch<T, 64, 64>(a, B, stream);
-    case 64128: return launch<T, 64, 128>(a, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int HD, int N>
+cudaError_t launch(int dtype, const SsdArgs& a, int B, cudaStream_t stream) {
+  if (dtype == kBFloat16)
+    return start(ssd_intra_chunk_bf16_kernel<HD, N>, bf16_smem_bytes<HD, N>(), a, B, stream);
+  return start(ssd_intra_chunk_f32_kernel<HD, N>, f32_smem_bytes<HD, N>(), a, B, stream);
+}
+
+template <int HD, int N>
+size_t smem_bytes(int dtype) {
+  return dtype == kBFloat16 ? bf16_smem_bytes<HD, N>() : f32_smem_bytes<HD, N>();
 }
 
 }  // namespace
 }  // namespace repro
+
+// Dynamic shared memory of the kernel for a type code and (hd, N); -1 if
+// the sizes are not built.
+extern "C" int repro_ssd_intra_chunk_smem(int dtype, int hd, int n_state) {
+  using namespace repro;
+  if (dtype != kBFloat16 && dtype != kFloat32) return -1;
+  switch (hd * 1000 + n_state) {
+    case 16016: return static_cast<int>(smem_bytes<16, 16>(dtype));
+    case 16064: return static_cast<int>(smem_bytes<16, 64>(dtype));
+    case 16128: return static_cast<int>(smem_bytes<16, 128>(dtype));
+    case 64016: return static_cast<int>(smem_bytes<64, 16>(dtype));
+    case 64064: return static_cast<int>(smem_bytes<64, 64>(dtype));
+    case 64128: return static_cast<int>(smem_bytes<64, 128>(dtype));
+    default: return -1;
+  }
+}
 
 // x (B, S, nh, hd) and b, c (B, S, N) in the input type, a (B, S, nh) f32,
 // each with a unit stride in its last dimension (a's strides are all
@@ -393,10 +576,17 @@ extern "C" int repro_ssd_intra_chunk(int dtype, int hd, int n_state, const void*
   using namespace repro;
   if (B <= 0 || S <= 0) return cudaSuccess;
   if (Q <= 0 || Q > kMaxQ || S % Q != 0) return cudaErrorInvalidValue;
+  if (dtype != kBFloat16 && dtype != kFloat32) return cudaErrorInvalidValue;
   const SsdArgs args{x, a, b, c, y, st, cum, S, nh, Q, xsb, xss, xsh,
                      asb, ass, ash, bsb, bss, csb, css};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) return launch_sizes<__nv_bfloat16>(hd, n_state, args, B, s);
-  if (dtype == kFloat32) return launch_sizes<float>(hd, n_state, args, B, s);
-  return cudaErrorInvalidValue;
+  switch (hd * 1000 + n_state) {
+    case 16016: return launch<16, 16>(dtype, args, B, s);
+    case 16064: return launch<16, 64>(dtype, args, B, s);
+    case 16128: return launch<16, 128>(dtype, args, B, s);
+    case 64016: return launch<64, 16>(dtype, args, B, s);
+    case 64064: return launch<64, 64>(dtype, args, B, s);
+    case 64128: return launch<64, 128>(dtype, args, B, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

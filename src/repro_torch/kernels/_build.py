@@ -45,6 +45,7 @@ SIGNATURES = {
     "repro_flash_decode_clusters": [_I, _I, _I, _I],
     "repro_ssd_intra_chunk": [_I, _I, _I] + [_P] * 7 + [_I] * 4 + [_L] * 10 + [_P],
     "repro_flash_prefill_smem": [_I, _I],
+    "repro_ssd_intra_chunk_smem": [_I, _I, _I],
 }
 
 

@@ -132,12 +132,13 @@ class TestKernelsOnCard:
         assert_close(got, want, dtype)
 
 
-def ssd_inputs(cuda, B, S, nh, hd, N, td, seed=2):
-    """x (B,S,nh,hd); a (B,S,nh) f32, negative; B and C as the strided column
-    slices of an xBC-like (B, S, nh*hd + 2N) tensor, as the model hands them."""
+def ssd_inputs(cuda, B, S, nh, hd, N, td, seed=2, a_scale=0.2):
+    """x (B,S,nh,hd); a (B,S,nh) f32, negative, up to a_scale deep; B and C
+    as the strided column slices of an xBC-like (B, S, nh*hd + 2N) tensor,
+    as the model hands them."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(B, S, nh, hd, generator=g, device=cuda).to(td)
-    a = -torch.rand(B, S, nh, generator=g, device=cuda) * 0.2
+    a = -torch.rand(B, S, nh, generator=g, device=cuda) * a_scale
     xbc = (torch.randn(B, S, nh * hd + 2 * N, generator=g, device=cuda) * 0.3).to(td)
     return x, a, xbc[..., nh * hd : nh * hd + N], xbc[..., nh * hd + N :]
 
@@ -156,9 +157,27 @@ class TestSSDOnCard:
         (2, 100, 3, 64, 128, 100),  # a prompt shorter than the model's chunk
         (2, 200, 3, 64, 64, 100),
         (2, 3, 3, 64, 128, 1),
+        # chunks that end inside a 16-row tile of the tensor-core fragments
+        (2, 200, 3, 16, 16, 100),  # the smoke configs' widths
+        (1, 70, 2, 16, 64, 35),
+        (2, 2, 3, 16, 16, 1),
+        (1, 120, 2, 64, 16, 120),
     ])
     def test_intra_chunk(self, cuda, dtype, B, S, nh, hd, N, Q):
-        x, a, b, c = ssd_inputs(cuda, B, S, nh, hd, N, DTYPES[dtype])
+        self.check_intra_chunk(cuda, dtype, B, S, nh, hd, N, Q)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,S,nh,hd,N,Q", [
+        (1, 512, 4, 64, 128, 256), (2, 256, 4, 64, 64, 256), (2, 64, 3, 16, 16, 16)])
+    def test_intra_chunk_steep_decay(self, cuda, dtype, B, S, nh, hd, N, Q):
+        """Log decays down to -4 a step (-2 on average): across a 64-key
+        strip exp(cum[i] - cum[j]) falls to ~e^-128 and underflows to 0 in
+        f32, as does the decay to the chunk's end of its early keys."""
+        self.check_intra_chunk(cuda, dtype, B, S, nh, hd, N, Q, a_scale=4.0)
+
+    @staticmethod
+    def check_intra_chunk(cuda, dtype, B, S, nh, hd, N, Q, a_scale=0.2):
+        x, a, b, c = ssd_inputs(cuda, B, S, nh, hd, N, DTYPES[dtype], a_scale=a_scale)
         n = ops.LAUNCHES["ssd_intra_chunk"]
         got = ops.ssd_intra_chunk(x, a, b, c, chunk=Q)
         assert ops.LAUNCHES["ssd_intra_chunk"] == n + 1

@@ -16,6 +16,9 @@ card by tests/test_torch_cuda.py.
 Tolerances as tests/kernels/test_kernels.py: f32 2e-4, bf16 3e-2.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import decode_attention as dec
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -360,6 +364,61 @@ class TestSSDIntraChunk:
         with pytest.raises(ValueError, match="multiple"):
             ops.ssd(x, x[..., 0], x[:, :, 0], x[:, :, 0], chunk=16)
 
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_bf16_split_products_hold_the_kernel_tolerance(self, seed):
+        """The bf16 kernel's arithmetic, in plain torch at mamba2-2.7b's chunk
+        and widths (Q=256, hd=64, N=128) with two heads: the masked, decayed
+        f32 scores and the f32 X * decay each split into a bf16 high part and
+        the bf16 rounding of the rest, each product summed in f32.  It stays
+        under chip_smoke.SSD_TOL's bf16 rule against the plain version; one
+        bf16 rounding of those operands does not."""
+        smoke = load_module("chip_smoke", ROOT / "chip_smoke.py")
+        tol = smoke.SSD_TOL["bfloat16"]
+        rng = np.random.default_rng(seed)
+        B, nh, Q, hd, N = 1, 2, 256, 64, 128
+
+        def draw(shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+        # the model's draws, as chip_smoke.ssd_inputs makes them
+        x = draw((B, nh, 1, Q, hd)).bfloat16()
+        dt = torch.nn.functional.softplus(draw((B, nh, 1, Q)) - 4.0)
+        a = dt * -torch.linspace(1.0, 16.0, nh)[None, :, None, None]
+        b, c = (draw((B, 1, 1, Q, N), 0.3).bfloat16().expand(B, nh, 1, Q, N) for _ in "bc")
+        want = ref.ssd_intra_chunk_ref(x, a, b, c)[:2]
+
+        x32, b32, c32 = x.float(), b.float(), c.float()
+        cum = torch.cumsum(a, -1)
+        i = torch.arange(Q)
+        p = torch.where(i[:, None] >= i[None, :],
+                        (c32 @ b32.transpose(-1, -2)) * torch.exp(cum[..., :, None] -
+                                                                 cum[..., None, :]), 0.0)
+        xd = x32 * torch.exp(cum[..., -1:] - cum)[..., None]
+
+        def split(v):
+            hi = v.bfloat16().float()
+            return hi, (v - hi).bfloat16().float()
+
+        (ph, pl), (xh, xl) = split(p), split(xd)
+        bt = b32.transpose(-1, -2)
+        two_part = (ph @ x32 + pl @ x32, bt @ xh + bt @ xl)
+        one_part = (ph @ x32, bt @ xh)
+
+        def excess(got):  # the largest |got - want| over the tolerance of its element
+            return max(((g - w).abs() / (tol * (1 + w.abs()))).max().item()
+                       for g, w in zip(got, want))
+
+        assert excess(two_part) < 1.0
+        assert excess(one_part) > 1.0
+
+
+def load_module(name, path):
+    """Imports a script of the repo by its path."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
 
 PTXAS_REPORT = """\
 ptxas info    : 0 bytes gmem
@@ -391,6 +450,24 @@ class TestBuild:
         assert _build.template_args(wg["name"]) == [160, 0]
         assert _build.template_args(f32["name"]) == [64]
         assert _build.template_args("_Z3foov") == []
+
+    def test_ab_tool_arguments(self):
+        """tools/prefill_ab.py takes each kernel it times, and refuses an
+        order that names a tree it was not given."""
+        ab = load_module("prefill_ab", ROOT / "tools" / "prefill_ab.py")
+        assert set(ab.CASES) == set(ab.KERNELS) == {"flash_prefill", "flash_decode",
+                                                    "ssd_intra_chunk"}
+        args = ab.parse_args(["--kernel", "ssd_intra_chunk", "--tree", "old=build/old",
+                              "--tree", "new=src/repro_torch/csrc",
+                              "--order", "old,new,new,old"])
+        assert args.kernel == "ssd_intra_chunk" and args.order == ["old", "new", "new", "old"]
+        assert args.trees == {"old": "build/old", "new": "src/repro_torch/csrc"}
+        assert ab.parse_args(["--tree", "a=x", "--order", "a"]).kernel == "flash_prefill"
+        with pytest.raises(SystemExit):
+            ab.parse_args(["--tree", "a=x", "--order", "a,b"])
+        with pytest.raises(SystemExit):
+            ab.parse_args(["--kernel", "ssd", "--tree", "a=x", "--order", "a"])
+        assert ab.SSD_SHAPES["mamba2_2p7b"] == (4, 1024, 80, 64, 128, 256, "bfloat16")
 
     def test_source_hash_follows_the_tree(self, tmp_path):
         a, b, c = (tmp_path / n for n in "abc")

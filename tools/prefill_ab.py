@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Times versions of a bf16 attention kernel (``flash_prefill`` or
-``flash_decode``) against each other in one process on one card, in turns,
-beside ``scaled_dot_product_attention``.
+"""Times versions of a bf16 kernel (``flash_prefill``, ``flash_decode`` or
+``ssd_intra_chunk``) against each other in one process on one card, in
+turns, beside ``scaled_dot_product_attention`` for the attention kernels.
 
     python3 tools/prefill_ab.py --tree old=<csrc dir> --tree new=src/repro_torch/csrc \\
-        --order old,new,new,old [--kernel flash_decode]
+        --order old,new,new,old [--kernel flash_decode | ssd_intra_chunk]
 
 Each ``--tree NAME=DIR`` names a directory of CUDA sources (``csrc/`` of this
 checkout, or of an older commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists).  Each is built into its own library
 with ``kernels/_build.py``; each version's output at every shape is held
-against the plain version (``ref.flash_attention_ref`` or
-``ref.decode_attention_ref``) before any timing; a version that disagrees
-or fails to launch is reported and not timed.  Then the versions are timed
-in the order given, at the main paths' shapes (stablelm-12b and zamba2-1.2b,
-bf16; prefill causal, decode at ``chip_smoke.py``'s cache lengths), with
-CUDA events as ``chip_smoke.time_ms`` does; the library call is timed first
-and last.  Prefill is timed warm; decode warm (the same cache every call)
-and cold (each call on the next of enough copies of the cache to exceed
-twice the L2, ``chip_smoke.cold_copies``).  Each decode version is
-launched with the split plan it shipped with (``DecodeVersion``).
+against the plain version (``ref.flash_attention_ref``,
+``ref.decode_attention_ref`` or ``ref.ssd_intra_chunk_ref``, the SSD at
+``chip_smoke.SSD_TOL``) before any timing; a version that disagrees or
+fails to launch is reported and not timed.  Then the versions are timed in
+the order given, at the main paths' shapes (attention: stablelm-12b and
+zamba2-1.2b, bf16, prefill causal, decode at ``chip_smoke.py``'s cache
+lengths; the SSD: mamba2-2.7b and zamba2-1.2b, bf16, as
+``chip_smoke.ssd_phase``), with CUDA events as ``chip_smoke.time_ms`` does;
+the library call, where there is one, is timed first and last.  Prefill
+is timed warm; decode warm (the same cache every call) and cold (each call
+on the next of enough copies of the cache to exceed twice the L2,
+``chip_smoke.cold_copies``).  The SSD is timed "warm", on the same inputs
+every call, but its inputs and f32 outputs come to ~173 MB at mamba2's
+shape and ~118 MB at zamba2's, over twice the 50 MB L2, so each call reads
+and writes device memory and the warm figure is the cold one.  Each decode
+version is launched with the split plan it shipped with
+(``DecodeVersion``).
 Prints one JSON line per timing and writes all of them, with the card's
 name and power limit and ptxas's report of each version's kernels, to
 ``--out`` (``build/<kernel>_ab.json`` by default).
@@ -48,6 +55,13 @@ DECODE_SHAPES = {
     "stablelm_12b": (4, 545, 32, 8, 160, [545, 513, 528, 520]),
     "zamba2_1p2b": (4, 1057, 32, 32, 64, [1057, 1025, 1040, 1032]),
 }
+# name: (B, S, nh, hd, N, Q, dtype), as chip_smoke.ssd_phase's measured rows
+SSD_SHAPES = {
+    "mamba2_2p7b": (4, 1024, 80, 64, 128, 256, "bfloat16"),
+    "zamba2_1p2b": (4, 1024, 64, 64, 64, 256, "bfloat16"),
+    "mamba2_2p7b_f32": (4, 1024, 80, 64, 128, 256, "float32"),
+}
+KERNELS = ("flash_prefill", "flash_decode", "ssd_intra_chunk")
 
 
 def prefill_launch(lib, q, k, v, out, scale):
@@ -129,10 +143,13 @@ class DecodeVersion:
 
 
 def prefill_cases(gen, libs, trees):
-    """(shape name, inputs, want, launch, library) for each prefill shape;
-    inputs is a list of one argument tuple (timed warm only)."""
+    """(shape name, inputs, check, launch, library) for each prefill shape:
+    inputs maps a timing mode to a list of argument tuples (here one, timed
+    warm only); check(out) returns the max abs error against the plain
+    version or raises."""
     import torch
     import torch.nn.functional as F
+    from chip_smoke import close
     from repro_torch.kernels import ref
 
     for name, (B, S, H, K, hd) in PREFILL_SHAPES.items():
@@ -152,7 +169,8 @@ def prefill_cases(gen, libs, trees):
                                                   v.transpose(1, 2), is_causal=True,
                                                   scale=scale, enable_gqa=True)
 
-        yield name, {"warm": [(q, k, v)]}, want, launch, library
+        yield (name, {"warm": [(q, k, v)]}, lambda out, want=want: close(out, want, torch.bfloat16),
+               launch, library)
 
 
 def decode_cases(gen, libs, trees):
@@ -160,7 +178,7 @@ def decode_cases(gen, libs, trees):
     cold on ``cold_copies`` copies of it taken in turn."""
     import torch
     import torch.nn.functional as F
-    from chip_smoke import cold_copies
+    from chip_smoke import close, cold_copies
     from repro_torch.kernels import ref
 
     versions = {t: DecodeVersion(lib, Path(trees[t]).resolve()) for t, lib in libs.items()}
@@ -186,27 +204,83 @@ def decode_cases(gen, libs, trees):
                 q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
                 scale=scale, enable_gqa=True)
 
-        yield name, {"warm": copies[:1], "cold": copies}, want, launch, library
+        yield (name, {"warm": copies[:1], "cold": copies},
+               lambda out, want=want: close(out, want, torch.bfloat16), launch, library)
 
 
-def main() -> int:
+def ssd_cases(gen, libs, trees):
+    """As prefill_cases for each SSD shape (bf16 at both paths' shapes, and
+    f32 at mamba2's), with no library call: the inputs as
+    ``chip_smoke.ssd_inputs`` makes them (B and C strided column slices of
+    an xBC tensor), each tree's three f32 outputs held against
+    ``ref.ssd_intra_chunk_ref`` at ``chip_smoke.SSD_TOL``."""
     import torch
-    from chip_smoke import card_line, close, time_ms
-    from repro_torch.kernels import _build
+    from chip_smoke import SSD_TOL, close, ssd_inputs
+    from repro_torch.kernels import _build, ref
 
+    for name, (B, S, nh, hd, N, Q, dtype) in SSD_SHAPES.items():
+        nC = S // Q
+        dtype = getattr(torch, dtype)
+        x, a, Bm, Cm = ssd_inputs(gen, B, S, nh, hd, N, dtype)
+        want = ref.ssd_intra_chunk_ref(
+            x.reshape(B, nC, Q, nh, hd).permute(0, 3, 1, 2, 4),
+            a.reshape(B, nC, Q, nh).permute(0, 3, 1, 2),
+            Bm.reshape(B, 1, nC, Q, N).expand(B, nh, nC, Q, N),
+            Cm.reshape(B, 1, nC, Q, N).expand(B, nh, nC, Q, N))
+        f32 = dict(dtype=torch.float32, device="cuda")
+        outs = {t: (torch.empty(B, S, nh, hd, **f32), torch.empty(B, nC, nh, hd, N, **f32),
+                    torch.empty(B, S, nh, **f32)) for t in libs}
+
+        def launch(tree, x, a, Bm, Cm, outs=outs, Q=Q):
+            y, st, cum = outs[tree]
+            err = libs[tree].repro_ssd_intra_chunk(
+                int(x.dtype == torch.bfloat16), x.shape[-1], Bm.shape[-1], x.data_ptr(), a.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), st.data_ptr(), cum.data_ptr(), *x.shape[:3], Q,
+                *x.stride()[:3], *a.stride(), *Bm.stride()[:2], *Cm.stride()[:2],
+                torch.cuda.current_stream().cuda_stream)
+            _build.check(err, "ssd_intra_chunk")
+            return outs[tree]
+
+        def check(out, want=want, B=B, S=S, nh=nh, hd=hd, Q=Q, dtype=dtype):
+            y, st, cum = out
+            got = (y.reshape(B, S // Q, Q, nh, hd).permute(0, 3, 1, 2, 4),
+                   st.permute(0, 2, 1, 4, 3), cum.reshape(B, S // Q, Q, nh).permute(0, 3, 1, 2))
+            tol = SSD_TOL[str(dtype).replace("torch.", "")]
+            return max(close(g, w, dtype, tol) for g, w in zip(got, want))
+
+        yield name, {"warm": [(x, a, Bm, Cm)]}, check, launch, None
+
+
+CASES = {"flash_prefill": prefill_cases, "flash_decode": decode_cases,
+         "ssd_intra_chunk": ssd_cases}
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=["flash_prefill", "flash_decode"],
-                    default="flash_prefill")
+    ap.add_argument("--kernel", choices=KERNELS, default="flash_prefill")
     ap.add_argument("--tree", action="append", required=True, help="NAME=DIR of CUDA sources")
     ap.add_argument("--order", required=True, help="comma-separated tree names, in turn")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--out", default=None, help="default build/<kernel>_ab.json")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    args.trees = dict(t.split("=", 1) for t in args.tree)
+    args.order = args.order.split(",")
+    unknown = set(args.order) - set(args.trees)
+    if unknown:
+        ap.error(f"--order names trees not given by --tree: {sorted(unknown)}")
+    return args
+
+
+def main() -> int:
+    import torch
+    from chip_smoke import card_line, time_ms
+    from repro_torch.kernels import _build
+
+    args = parse_args()
     if not torch.cuda.is_available():
         print("prefill_ab: no CUDA device", file=sys.stderr)
         return 1
-    trees = dict(t.split("=", 1) for t in args.tree)
-    order = args.order.split(",")
+    trees, order = args.trees, args.order
     card = card_line()
     libs, report = {}, {}
     for name, path in trees.items():
@@ -217,19 +291,28 @@ def main() -> int:
         print(f"ptxas {name}:", json.dumps(report[name]), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = (prefill_cases if args.kernel == "flash_prefill" else decode_cases)(gen, libs, trees)
     rows = []
-    for shape_name, inputs, want, launch, library in cases:
-        wrong = set()
+    for shape_name, inputs, check, launch, library in CASES[args.kernel](gen, libs, trees):
+        wrong, first = set(), None
         for name in libs:
+            row = dict(shape=shape_name, tree=name)
             try:
-                err = close(launch(name, *inputs["warm"][0]), want, torch.bfloat16)
+                out = launch(name, *inputs["warm"][0])
+                row["max_abs_err"] = check(out)
+                out = [t.float() for t in (out if isinstance(out, tuple) else (out,))]
+                if first is None:
+                    first = [t.clone() for t in out]
+                else:  # against the first tree's output: 0 where the arithmetic is the same
+                    row["max_abs_diff_first_tree"] = max(
+                        (t - f).abs().max().item() for t, f in zip(out, first))
             except (AssertionError, RuntimeError) as exc:  # reported; not timed
                 wrong.add(name)
-                err = str(exc)
-            rows.append(dict(shape=shape_name, tree=name, max_abs_err=err))
+                row["max_abs_err"] = str(exc)
+            rows.append(row)
             print(json.dumps(rows[-1]), flush=True)
-        sequence = ["library", *(n for n in order if n not in wrong), "library"]
+        del first
+        lib_turn = ["library"] if library is not None else []
+        sequence = [*lib_turn, *(n for n in order if n not in wrong), *lib_turn]
         for mode, sets in inputs.items():
             for turn, name in enumerate(sequence):
                 fn = library if name == "library" else (lambda *a, t=name: launch(t, *a))
