@@ -17,7 +17,9 @@
 // (the lower triangle of C B^T and of its product with X, and the state
 // product), so the card's memory bounds it (~0.05 ms at 3.35 TB/s).  On
 // the CUDA cores in f32 those products alone would take ~0.18 ms at their
-// peak rate, so the bf16 kernel runs all three on the tensor cores.
+// peak rate, so the bf16 kernel runs all three on the tensor cores; it
+// then takes ~0.245 ms, held back by the latency of each block's chain of
+// strip loads, barriers and dependent products with four blocks an SM.
 //
 // What the design does about it:
 //   * one block per (chunk, head, batch); the Q x Q scores (256 KB in f32)
@@ -41,15 +43,21 @@
 //     state^T = (X * decay)^T B, the f32 X * decay split the same way and
 //     staged in the shared memory the C strip frees.  The two parts carry
 //     ~16 bits of each f32 operand, where one bf16 rounding (8 bits) would
-//     fail the 1e-3 tolerance ~20x over at mamba2's chunk;
+//     fail the 1e-3 tolerance ~20x over at mamba2's chunk.  The mask and
+//     decay take no branch (a masked score's exponent is -inf), and the
+//     kernel is held to 128 registers, four blocks an SM (the state's
+//     accumulators at N 128 are taken in two passes over the keys for it);
 //   * f32 (ssd_intra_chunk_f32_kernel) runs everything on the CUDA cores;
 //   * outputs are f32, contiguous: y_diag (B, S, nh, hd) in the model's
 //     layout, states (B, nC, nh, hd, N) in the layout of the recurrent
 //     state, cum (B, S, nh) in a's layout.
-// Left for later: overlapping the strip loads with the products (each key
-// strip of B and X is loaded behind a barrier, and reloaded by every query
-// strip and again by the state pass), sharing C B^T between the heads of a
-// batch row (it is recomputed per head here), wgmma and TMA.
+// Tried and slower on the card: the key strips through a 2-stage cp.async
+// ring (its registers and shared memory cost blocks an SM, and at equal
+// blocks it did not gain), cp.async in place of the register-staged loads,
+// exp2-based __expf, and five blocks an SM at N 64.
+// Left for later: sharing C B^T between the heads of a batch row (it is
+// recomputed per head here), fewer reloads of the key strips (each query
+// strip and the state pass reload them), wgmma and TMA.
 
 #include <cstdint>
 
@@ -347,8 +355,10 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// At most 128 registers a thread: four blocks an SM, as many as the shared
+// memory of the largest (hd 64, N 128) holds.
 template <int HD, int N>
-__global__ void __launch_bounds__(kThreads) ssd_intra_chunk_bf16_kernel(SsdArgs a) {
+__global__ void __launch_bounds__(kThreads, 4) ssd_intra_chunk_bf16_kernel(SsdArgs a) {
   constexpr int LDN = bf16_ld<N>(), LDX = bf16_ld<HD>();
   constexpr int NO = HD / 8;       // n-tiles of a warp's 16 rows of y
   constexpr int KS = kR / 16;      // k-steps of a key strip
@@ -411,7 +421,9 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_bf16_kernel(SsdArgs 
         }
       }
 
-      // Masked (before exp) and decayed, in place.
+      // Masked and decayed, in place, without a branch: a masked score's
+      // exponent is -inf before exp (exp gives 0; no inf * 0), and rows past
+      // the chunk are masked whole, so they stay 0.
       const float ci[2] = {r_lo < Q ? cum[r_lo] : 0.f, r_lo + 8 < Q ? cum[r_lo + 8] : 0.f};
 #pragma unroll
       for (int n = 0; n < kR / 8; ++n) {
@@ -419,7 +431,7 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_bf16_kernel(SsdArgs 
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = r_lo + 8 * (e >> 1), j = j0 + n * 8 + 2 * t + (e & 1);
-          s[n][e] = (i < Q && i >= j) ? s[n][e] * expf(ci[e >> 1] - cum[j]) : 0.f;
+          s[n][e] *= expf(i < Q && i >= j ? ci[e >> 1] - cum[j] : -INFINITY);
         }
       }
 
@@ -459,66 +471,73 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_bf16_kernel(SsdArgs 
 
   // --- state^T (hd, N) = (X * decay)^T B over the chunk's keys, decay =
   // exp(cum[Q-1] - cum).  A warp owns 16 rows of hd and pairs of 8-column
-  // n-tiles: all N / 16 pairs at hd 64, a quarter of them at hd 16.
+  // n-tiles: all N / 16 pairs at hd 64, a quarter of them at hd 16.  More
+  // than 4 pairs (hd 64, N 128) are taken in two passes over the keys, 4 at
+  // a time, so that the accumulators fit the 128 registers of four blocks
+  // an SM.
   constexpr int MT = HD / 16, WN = 4 / MT, NP = N / 16, PW = (NP + WN - 1) / WN;
   static_assert(MT * WN == 4, "four warps over the state's row tiles");
-  const int m0 = (warp % MT) * 16, p0 = (warp / MT) * PW;
-  float st[2 * PW][4] = {};
+  constexpr int PASSES = PW > 4 ? 2 : 1, PP = PW / PASSES;  // passes, pairs a pass
+  const int m0 = (warp % MT) * 16;
   const float cum_end = cum[Q - 1];
   __syncthreads();  // cum_end is read, and the y pass is done with cum and the strips
   float* decay = cum;  // cum[i] becomes exp(cum[Q-1] - cum[i]), the decay to the chunk's end
   for (int i = tid; i < Q; i += kThreads) decay[i] = expf(cum_end - cum[i]);
-  for (int j0 = 0; j0 < Q; j0 += kR) {
-    __syncthreads();  // the decays are written; the strips of the previous pass are consumed
-    load_strip<bf16, N>(bb, a.bss, j0, Q, store_to(Bs, LDN));
-    load_strip<bf16, HD>(xb, a.xss, j0, Q, [&](int r, int c, const uint4& v) {
-      float f[8];
-      Vec16<bf16>::load(reinterpret_cast<const bf16*>(&v), f);
-      const float d = j0 + r < Q ? decay[j0 + r] : 0.f;
-      uint4 hi, lo;
-      split_bf16(f[0] * d, f[1] * d, hi.x, lo.x);
-      split_bf16(f[2] * d, f[3] * d, hi.y, lo.y);
-      split_bf16(f[4] * d, f[5] * d, hi.z, lo.z);
-      split_bf16(f[6] * d, f[7] * d, hi.w, lo.w);
-      *reinterpret_cast<uint4*>(Xh + r * LDX + c) = hi;
-      *reinterpret_cast<uint4*>(Xl + r * LDX + c) = lo;
-    });
-    __syncthreads();
-    const int ksteps = (min(kR, Q - j0) + 15) / 16;  // rows past Q are zero
+  float* sb = a.st + ((static_cast<long long>(bi) * (a.S / Q) + chunk) * a.nh + h) * HD * N;
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int p0 = (warp / MT) * PW + pass * PP;
+    float st[2 * PP][4] = {};
+    for (int j0 = 0; j0 < Q; j0 += kR) {
+      __syncthreads();  // the decays are written; the strips of the previous pass are consumed
+      load_strip<bf16, N>(bb, a.bss, j0, Q, store_to(Bs, LDN));
+      load_strip<bf16, HD>(xb, a.xss, j0, Q, [&](int r, int c, const uint4& v) {
+        float f[8];
+        Vec16<bf16>::load(reinterpret_cast<const bf16*>(&v), f);
+        const float d = j0 + r < Q ? decay[j0 + r] : 0.f;
+        uint4 hi, lo;
+        split_bf16(f[0] * d, f[1] * d, hi.x, lo.x);
+        split_bf16(f[2] * d, f[3] * d, hi.y, lo.y);
+        split_bf16(f[4] * d, f[5] * d, hi.z, lo.z);
+        split_bf16(f[6] * d, f[7] * d, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(Xh + r * LDX + c) = hi;
+        *reinterpret_cast<uint4*>(Xl + r * LDX + c) = lo;
+      });
+      __syncthreads();
+      const int ksteps = (min(kR, Q - j0) + 15) / 16;  // rows past Q are zero
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      if (kk >= ksteps) break;
-      // A = (X * decay)^T: rows of hd, columns of keys, read transposed from
-      // the (key, hd) strips.
-      const int arow = kk * 16 + (lane & 7) + (lane >> 4) * 8, acol = m0 + ((lane >> 3) & 1) * 8;
-      uint32_t ah[4], al[4];
-      ldmatrix_x4_trans(ah, Xh + arow * LDX + acol);
-      ldmatrix_x4_trans(al, Xl + arow * LDX + acol);
+      for (int kk = 0; kk < KS; ++kk) {
+        if (kk >= ksteps) break;
+        // A = (X * decay)^T: rows of hd, columns of keys, read transposed
+        // from the (key, hd) strips.
+        const int arow = kk * 16 + (lane & 7) + (lane >> 4) * 8, acol = m0 + ((lane >> 3) & 1) * 8;
+        uint32_t ah[4], al[4];
+        ldmatrix_x4_trans(ah, Xh + arow * LDX + acol);
+        ldmatrix_x4_trans(al, Xl + arow * LDX + acol);
 #pragma unroll
-      for (int pp = 0; pp < PW; ++pp) {
-        const int p = p0 + pp;
-        if (p >= NP) break;
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, Bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN +
-                                  p * 16 + (lane >> 4) * 8);
-        mma_bf16(st[2 * pp], ah, bf[0], bf[1]);
-        mma_bf16(st[2 * pp], al, bf[0], bf[1]);
-        mma_bf16(st[2 * pp + 1], ah, bf[2], bf[3]);
-        mma_bf16(st[2 * pp + 1], al, bf[2], bf[3]);
+        for (int pp = 0; pp < PP; ++pp) {
+          const int p = p0 + pp;
+          if (p >= NP) break;
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, Bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN +
+                                    p * 16 + (lane >> 4) * 8);
+          mma_bf16(st[2 * pp], ah, bf[0], bf[1]);
+          mma_bf16(st[2 * pp], al, bf[0], bf[1]);
+          mma_bf16(st[2 * pp + 1], ah, bf[2], bf[3]);
+          mma_bf16(st[2 * pp + 1], al, bf[2], bf[3]);
+        }
       }
     }
-  }
-  float* sb = a.st + ((static_cast<long long>(bi) * (a.S / Q) + chunk) * a.nh + h) * HD * N;
 #pragma unroll
-  for (int pp = 0; pp < PW; ++pp) {
-    const int p = p0 + pp;
-    if (p >= NP) break;
+    for (int pp = 0; pp < PP; ++pp) {
+      const int p = p0 + pp;
+      if (p >= NP) break;
 #pragma unroll
-    for (int q = 0; q < 2; ++q)
+      for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<float2*>(sb + (m0 + g + 8 * half) * N + p * 16 + q * 8 + 2 * t) =
-            make_float2(st[2 * pp + q][2 * half], st[2 * pp + q][2 * half + 1]);
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<float2*>(sb + (m0 + g + 8 * half) * N + p * 16 + q * 8 + 2 * t) =
+              make_float2(st[2 * pp + q][2 * half], st[2 * pp + q][2 * half + 1]);
+    }
   }
 }
 

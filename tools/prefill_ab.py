@@ -208,6 +208,20 @@ def decode_cases(gen, libs, trees):
                lambda out, want=want: close(out, want, torch.bfloat16), launch, library)
 
 
+def ssd_launch(lib, x, a, Bm, Cm, y, st, cum, Q):
+    """One launch of a library's SSD kernel through its C entry point, in
+    x's type, into the given f32 outputs."""
+    import torch
+    from repro_torch.kernels import _build
+
+    err = lib.repro_ssd_intra_chunk(
+        int(x.dtype == torch.bfloat16), x.shape[-1], Bm.shape[-1], x.data_ptr(), a.data_ptr(),
+        Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), st.data_ptr(), cum.data_ptr(),
+        *x.shape[:3], Q, *x.stride()[:3], *a.stride(), *Bm.stride()[:2], *Cm.stride()[:2],
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ssd_intra_chunk")
+
+
 def ssd_cases(gen, libs, trees):
     """As prefill_cases for each SSD shape (bf16 at both paths' shapes, and
     f32 at mamba2's), with no library call: the inputs as
@@ -216,7 +230,7 @@ def ssd_cases(gen, libs, trees):
     ``ref.ssd_intra_chunk_ref`` at ``chip_smoke.SSD_TOL``."""
     import torch
     from chip_smoke import SSD_TOL, close, ssd_inputs
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ref
 
     for name, (B, S, nh, hd, N, Q, dtype) in SSD_SHAPES.items():
         nC = S // Q
@@ -232,13 +246,7 @@ def ssd_cases(gen, libs, trees):
                     torch.empty(B, S, nh, **f32)) for t in libs}
 
         def launch(tree, x, a, Bm, Cm, outs=outs, Q=Q):
-            y, st, cum = outs[tree]
-            err = libs[tree].repro_ssd_intra_chunk(
-                int(x.dtype == torch.bfloat16), x.shape[-1], Bm.shape[-1], x.data_ptr(), a.data_ptr(), Bm.data_ptr(),
-                Cm.data_ptr(), y.data_ptr(), st.data_ptr(), cum.data_ptr(), *x.shape[:3], Q,
-                *x.stride()[:3], *a.stride(), *Bm.stride()[:2], *Cm.stride()[:2],
-                torch.cuda.current_stream().cuda_stream)
-            _build.check(err, "ssd_intra_chunk")
+            ssd_launch(libs[tree], x, a, Bm, Cm, *outs[tree], Q)
             return outs[tree]
 
         def check(out, want=want, B=B, S=S, nh=nh, hd=hd, Q=Q, dtype=dtype):
