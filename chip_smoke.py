@@ -7,8 +7,10 @@ Phases, each of which fails the run on any fault:
 
 1. Device and toolchain: the card's name and power limit, the torch, CUDA
    and nvcc versions; builds the CUDA kernels from ``src/repro_torch/csrc``
-   and prints each ``flash_prefill`` and ``flash_decode`` kernel's
-   registers, spills (from ptxas's report) and shared memory.
+   and prints each ``flash_prefill``, ``flash_decode`` and
+   ``ssd_intra_chunk`` kernel's registers, spills (from ptxas's report) and
+   shared memory; fails if the bf16 SSD kernel spills at the served
+   models' sizes.
 2. Kernels: holds each hand-written kernel against its plain PyTorch version
    on the card at the main paths' shapes (and at a window + softcap case, a
    ragged-S case, other head sizes, prompts shorter than an SSD chunk and

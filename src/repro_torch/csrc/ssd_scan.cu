@@ -355,8 +355,8 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// At most 128 registers a thread: four blocks an SM, as many as the shared
-// memory of the largest (hd 64, N 128) holds.
+// At most 128 registers a thread: four blocks an SM.  Five (at most 102
+// registers) ran slower at N 64.
 template <int HD, int N>
 __global__ void __launch_bounds__(kThreads, 4) ssd_intra_chunk_bf16_kernel(SsdArgs a) {
   constexpr int LDN = bf16_ld<N>(), LDX = bf16_ld<HD>();

@@ -455,8 +455,7 @@ class TestBuild:
         """tools/prefill_ab.py takes each kernel it times, and refuses an
         order that names a tree it was not given."""
         ab = load_module("prefill_ab", ROOT / "tools" / "prefill_ab.py")
-        assert set(ab.CASES) == set(ab.KERNELS) == {"flash_prefill", "flash_decode",
-                                                    "ssd_intra_chunk"}
+        assert set(ab.CASES) == {"flash_prefill", "flash_decode", "ssd_intra_chunk"}
         args = ab.parse_args(["--kernel", "ssd_intra_chunk", "--tree", "old=build/old",
                               "--tree", "new=src/repro_torch/csrc",
                               "--order", "old,new,new,old"])
@@ -506,3 +505,13 @@ class TestBuild:
         spec.loader.exec_module(probe)
         patched = probe.patched_source((_build.CSRC / "decode_attention.cu").read_text())
         assert patched.count("pr_t[") == 7 and "g_probe" in patched
+
+    def test_ssd_probe_patches_the_current_kernel(self):
+        """tools/ssd_probe.py instruments a copy of the bf16 SSD kernel at
+        anchor lines; every anchor must still be in the source, once, and
+        every phase gets its clock read."""
+        probe = load_module("ssd_probe", ROOT / "tools" / "ssd_probe.py")
+        patched = probe.patched_source((_build.CSRC / "ssd_scan.cu").read_text())
+        for i in range(len(probe.PHASES)):
+            assert f"pr_t[{i}] += clock64() - pr_c;" in patched
+        assert "g_probe" in patched and "ssd_intra_chunk_f32_kernel" in patched

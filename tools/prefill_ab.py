@@ -23,7 +23,7 @@ is timed warm; decode warm (the same cache every call) and cold (each call
 on the next of enough copies of the cache to exceed twice the L2,
 ``chip_smoke.cold_copies``).  The SSD is timed "warm", on the same inputs
 every call, but its inputs and f32 outputs come to ~173 MB at mamba2's
-shape and ~118 MB at zamba2's, over twice the 50 MB L2, so each call reads
+shape and ~121 MB at zamba2's, over twice the 50 MB L2, so each call reads
 and writes device memory and the warm figure is the cold one.  Each decode
 version is launched with the split plan it shipped with
 (``DecodeVersion``).
@@ -61,7 +61,6 @@ SSD_SHAPES = {
     "zamba2_1p2b": (4, 1024, 64, 64, 64, 256, "bfloat16"),
     "mamba2_2p7b_f32": (4, 1024, 80, 64, 128, 256, "float32"),
 }
-KERNELS = ("flash_prefill", "flash_decode", "ssd_intra_chunk")
 
 
 def prefill_launch(lib, q, k, v, out, scale):
@@ -169,8 +168,8 @@ def prefill_cases(gen, libs, trees):
                                                   v.transpose(1, 2), is_causal=True,
                                                   scale=scale, enable_gqa=True)
 
-        yield (name, {"warm": [(q, k, v)]}, lambda out, want=want: close(out, want, torch.bfloat16),
-               launch, library)
+        yield (name, {"warm": [(q, k, v)]},
+               lambda out, want=want: close(out, want, torch.bfloat16), launch, library)
 
 
 def decode_cases(gen, libs, trees):
@@ -265,7 +264,7 @@ CASES = {"flash_prefill": prefill_cases, "flash_decode": decode_cases,
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=KERNELS, default="flash_prefill")
+    ap.add_argument("--kernel", choices=list(CASES), default="flash_prefill")
     ap.add_argument("--tree", action="append", required=True, help="NAME=DIR of CUDA sources")
     ap.add_argument("--order", required=True, help="comma-separated tree names, in turn")
     ap.add_argument("--iters", type=int, default=50)

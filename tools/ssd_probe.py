@@ -133,9 +133,9 @@ def patched_source(text: str) -> str:
 
 def main() -> int:
     import torch
-    from chip_smoke import SSD_TOL, card_line, close, ssd_inputs, time_ms
-    from prefill_ab import SSD_SHAPES, ssd_launch
-    from repro_torch.kernels import _build, ref
+    from chip_smoke import card_line, time_ms
+    from prefill_ab import SSD_SHAPES, ssd_cases
+    from repro_torch.kernels import _build
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" / "ssd_probe.json"))
@@ -150,35 +150,24 @@ def main() -> int:
     src.write_text(patched_source(src.read_text()))
     lib = _build.bind(_build.build(csrc))
     lib.repro_probe_set.argtypes = [ctypes.c_void_p]
-    shipped = _build.library()  # the kernel without clock reads
+    libs = {"probe": lib, "shipped": _build.library()}  # shipped: without clock reads
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for name, (B, S, nh, hd, N, Q, dtype) in SSD_SHAPES.items():
+    for name, inputs, check, launch, _ in ssd_cases(gen, libs, None):
+        B, S, nh, hd, N, Q, dtype = SSD_SHAPES[name]
         if dtype != "bfloat16":
             continue
-        nC = S // Q
-        x, a, Bm, Cm = ssd_inputs(gen, B, S, nh, hd, N, torch.bfloat16)
-        f32 = dict(dtype=torch.float32, device="cuda")
-        outs = (torch.empty(B, S, nh, hd, **f32), torch.empty(B, nC, nh, hd, N, **f32),
-                torch.empty(B, S, nh, **f32))
-        blocks = nC * nh * B
+        operands = inputs["warm"][0]
+        blocks = S // Q * nh * B
         buf = torch.zeros(blocks * len(FIELDS), dtype=torch.int64, device="cuda")
-        event_ms = time_ms(lambda: ssd_launch(lib, x, a, Bm, Cm, *outs, Q), iters=50)
-        plain_ms = time_ms(lambda: ssd_launch(shipped, x, a, Bm, Cm, *outs, Q), iters=50)
+        event_ms = time_ms(lambda: launch("probe", *operands), iters=50)
+        plain_ms = time_ms(lambda: launch("shipped", *operands), iters=50)
         torch.cuda.synchronize()
         _build.check(lib.repro_probe_set(buf.data_ptr()), "probe")
-        ssd_launch(lib, x, a, Bm, Cm, *outs, Q)
+        got = launch("probe", *operands)
         torch.cuda.synchronize()
         _build.check(lib.repro_probe_set(None), "probe")
-        y, st, cum = outs
-        want = ref.ssd_intra_chunk_ref(
-            x.reshape(B, nC, Q, nh, hd).permute(0, 3, 1, 2, 4),
-            a.reshape(B, nC, Q, nh).permute(0, 3, 1, 2),
-            Bm.reshape(B, 1, nC, Q, N).expand(B, nh, nC, Q, N),
-            Cm.reshape(B, 1, nC, Q, N).expand(B, nh, nC, Q, N))
-        got = (y.reshape(B, nC, Q, nh, hd).permute(0, 3, 1, 2, 4), st.permute(0, 2, 1, 4, 3),
-               cum.reshape(B, nC, Q, nh).permute(0, 3, 1, 2))
-        err = max(close(g, w, torch.bfloat16, SSD_TOL["bfloat16"]) for g, w in zip(got, want))
+        err = check(got)
         rec = buf.view(blocks, len(FIELDS)).cpu().double()
         t0, t1 = rec[:, 0], rec[:, 1]
         span = float(t1.max() - t0.min())
