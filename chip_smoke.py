@@ -19,14 +19,18 @@ Phases, each of which fails the run on any fault:
    copies of the cache to exceed twice the L2, and warm); holds ``ops.ssd`` (the SSD kernel plus its
    recurrence glue) against the model's plain ``ssd_chunked``.  The
    ``{"kernels": [...]}`` line, printed after phase 3, has one row per
-   kernel: the check, times, bound and launches at the first path that ran
-   it, and the same for each other path under ``other_paths``.
-3. Slices: serves stablelm-12b, mamba2-2.7b and zamba2-1.2b at their
-   published widths (random weights from a seed, bf16) through
-   ``Engine.generate``, each with every launch count set to 0 just before
-   and read just after, checks that every attention and SSD call of prefill
-   and decode launched its kernel, and holds the logits against a run of the
-   same weights on the plain versions, teacher-forced on the same tokens;
+   kernel: the check, times, bound and launches at the first (path, shape)
+   that ran it, and the same for each other (path, shape) under
+   ``other_paths``.
+3. Slices: serves stablelm-12b, mamba2-2.7b, zamba2-1.2b,
+   seamless-m4t-large-v2 (encoder-decoder), grok-1 and llama4-scout (MoE,
+   at a stated cut of their depth) at their published widths (random
+   weights from a seed, bf16) through ``Engine.generate``, each with every
+   launch count set to 0 just before and read just after, checks that
+   every attention and SSD call of prefill and decode launched its kernel
+   (and at which shapes), and holds the logits against a run of the same
+   weights on the plain versions, teacher-forced on the same tokens (for
+   MoE also the share of routing choices on which the two runs differ);
    then repeats that comparison with the same draws in f32.
 4. Rates: prefill ms, decode ms per step and generated tokens per second,
    and a profile of each model's prefill and decode.
@@ -151,7 +155,7 @@ def prefill_case(gen, B, Sq, H, K, hd, dtype, *, Sk=None, causal=True, window=No
     torch.cuda.synchronize()
     row = dict(shape=f"B={B} Sq={Sq} Sk={Sk} H={H} K={K} hd={hd}", dtype=dtype_name(dtype),
                causal=causal, window=window, softcap=softcap, max_abs_err=err,
-               tol=TOL[dtype_name(dtype)])
+               tol=TOL[dtype_name(dtype)], key=("flash_prefill", (B, Sq, Sk, H, K, hd, causal)))
     if not measure:
         return row
     qp = torch.arange(Sq, device=dev)[:, None]
@@ -212,7 +216,7 @@ def decode_case(gen, B, S, H, K, hd, dtype, lengths, *, window=None, softcap=Non
     torch.cuda.synchronize()
     row = dict(shape=f"B={B} S={S} H={H} K={K} hd={hd} lengths={list(lengths)}",
                dtype=dtype_name(dtype), window=window, softcap=softcap, max_abs_err=err,
-               tol=TOL[dtype_name(dtype)])
+               tol=TOL[dtype_name(dtype)], key=("flash_decode", (B, S, H, K, hd)))
     if not measure:
         return row
     valid = sum(min(n, window) if window else n for n in lengths)
@@ -285,7 +289,7 @@ def ssd_case(gen, B, S, nh, hd, N, Q, dtype, measure=False):
     err = max(close(g, w, dtype, tol) for g, w in zip(kernel(), plain()))
     torch.cuda.synchronize()
     row = dict(shape=f"B={B} S={S} nh={nh} hd={hd} N={N} Q={Q}", dtype=dtype_name(dtype),
-               max_abs_err=err, tol=tol)
+               max_abs_err=err, tol=tol, key=("ssd_intra_chunk", (B, S, nh, hd, N)))
     if not measure:
         return row
     # Each input read once (B and C once per batch row, not per head), each
@@ -331,7 +335,8 @@ def ssd_phase():
     """Checks the SSD kernel at mamba2-2.7b's main-path shape (B=4, S=1024,
     80 heads of 64, N=128, Q=256) in bf16 and f32, zamba2-1.2b's (64 heads,
     N=64), prompts shorter than a chunk and the smoke configs' sizes;
-    returns the bf16 rows of the two paths' shapes."""
+    returns the bf16 rows of the two paths' shapes, a list per (kernel,
+    path)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -354,22 +359,23 @@ def ssd_phase():
     ]
     for row in [*main.values(), *extra]:
         log("kernel check:", json.dumps(row))
-    return {("ssd_intra_chunk", arch): row for arch, row in main.items()}
+    return {("ssd_intra_chunk", arch): [row] for arch, row in main.items()}
 
 
 def kernel_phase(B=4, S=512, H=32, K=8, hd=160, gen_steps=32):
     """Checks both attention kernels; returns the bf16 rows of the paths'
-    shapes, keyed by (kernel, path)."""
+    shapes, a list per (kernel, path): seamless runs the prefill kernel at
+    three shapes (its encoder, its decoder's self- and cross-attention)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     S_cache = S + gen_steps + 1
     lengths = [S_cache, S + 1, S + gen_steps // 2, S + 8]
-    main = {("flash_prefill", "stablelm_12b"): prefill_case(gen, B, S, H, K, hd, bf16,
-                                                            measure=True),
-            ("flash_decode", "stablelm_12b"): decode_case(gen, B, S_cache, H, K, hd, bf16,
-                                                          lengths, measure=True)}
+    main = {("flash_prefill", "stablelm_12b"): [prefill_case(gen, B, S, H, K, hd, bf16,
+                                                             measure=True)],
+            ("flash_decode", "stablelm_12b"): [decode_case(gen, B, S_cache, H, K, hd, bf16,
+                                                           lengths, measure=True)]}
     extra = [
         prefill_case(gen, B, S, H, K, hd, f32, measure=True),
         decode_case(gen, B, S_cache, H, K, hd, f32, lengths, measure=True),
@@ -388,16 +394,34 @@ def kernel_phase(B=4, S=512, H=32, K=8, hd=160, gen_steps=32):
     ]
     # zamba2-1.2b's shared attention: MHA, 32 heads of 64, prompt 1024.
     zamba_cache = 1024 + gen_steps + 1
-    main[("flash_prefill", "zamba2_1p2b")] = prefill_case(gen, B, 1024, 32, 32, 64, bf16,
-                                                          measure=True)
-    main[("flash_decode", "zamba2_1p2b")] = decode_case(
+    main[("flash_prefill", "zamba2_1p2b")] = [prefill_case(gen, B, 1024, 32, 32, 64, bf16,
+                                                           measure=True)]
+    main[("flash_decode", "zamba2_1p2b")] = [decode_case(
         gen, B, zamba_cache, 32, 32, 64, bf16,
-        [zamba_cache, 1025, 1024 + gen_steps // 2, 1032], measure=True)
+        [zamba_cache, 1025, 1024 + gen_steps // 2, 1032], measure=True)]
+    # seamless-m4t-large-v2: MHA, 16 heads of 64; the encoder over the
+    # 4096-frame stub memory (non-causal), the decoder's self-attention over
+    # the 512-token prompt, its cross-attention from the prompt to the memory.
+    enc = SLICES["seamless_m4t_large_v2"]["widths"]["enc_len"]
+    main[("flash_prefill", "seamless_m4t_large_v2")] = [
+        prefill_case(gen, B, enc, 16, 16, 64, bf16, causal=False, measure=True),
+        prefill_case(gen, B, S, 16, 16, 64, bf16, measure=True),
+        prefill_case(gen, B, S, 16, 16, 64, bf16, Sk=enc, causal=False, measure=True)]
+    # grok-1 (48 heads / 8 KV, q_per_kv 6) and llama4-scout (40 / 8, q_per_kv
+    # 5), hd 128: prompt 512, cache 545.
+    for arch, heads in (("grok_1_314b", 48), ("llama4_scout_17b_a16e", 40)):
+        main[("flash_prefill", arch)] = [prefill_case(gen, B, S, heads, 8, 128, bf16,
+                                                      measure=True)]
+    for arch, heads, kv, hd_x in (("seamless_m4t_large_v2", 16, 16, 64),
+                                  ("grok_1_314b", 48, 8, 128),
+                                  ("llama4_scout_17b_a16e", 40, 8, 128)):
+        main[("flash_decode", arch)] = [decode_case(gen, B, S_cache, heads, kv, hd_x, bf16,
+                                                    lengths, measure=True)]
     for hd_x in (16, 32, 64, 128, 256):
         for dtype in (f32, bf16):
             extra.append(prefill_case(gen, 2, 200, 4, 2, hd_x, dtype))
             extra.append(decode_case(gen, 2, 300, 4, 2, hd_x, dtype, [300, 123]))
-    for row in [*main.values(), *extra]:
+    for row in [*(r for rows in main.values() for r in rows), *extra]:
         log("kernel check:", json.dumps(row))
     return main
 
@@ -451,7 +475,11 @@ def kernel_resources():
 # ---------------------------------------------------------------------------
 # The models served, at their published widths (asserted), each with its
 # prompt length and its kernel launches: flash_prefill per prefill,
-# flash_decode per decode step, ssd_intra_chunk per prefill.
+# flash_decode per decode step, ssd_intra_chunk per prefill.  A model too
+# large for one card is served at a stated ``cut`` of its depth (every width,
+# the expert count, top-k, capacity factor and group size as published),
+# and its f32 pass at the smaller ``f32_cut``, with the launches of that
+# depth: the f32 draws of 6 grok-1 layers would take 120 GB.
 SLICES = {
     "stablelm_12b": dict(
         prompt=512, launches=(40, 40, 0),
@@ -467,17 +495,71 @@ SLICES = {
         widths=dict(n_layers=38, d_model=2048, d_inner=4096, n_ssm_heads=64, ssm_head_dim=64,
                     ssm_state=64, ssm_chunk=256, hybrid_period=6, n_heads=32, n_kv_heads=32,
                     head_dim=64, d_ff=8192, vocab=32000, dtype="bfloat16")),
+    # 24 encoder calls over the 4096-frame stub memory, 24 self- and 24
+    # cross-attention calls a prefill; 24 self-attention calls a decode step
+    # (its cross-attention against the precomputed K/V is plain PyTorch).
+    "seamless_m4t_large_v2": dict(
+        prompt=512, launches=(72, 24, 0),
+        widths=dict(n_layers=24, n_enc_layers=24, d_model=1024, n_heads=16, n_kv_heads=16,
+                    head_dim=64, d_ff=8192, mlp_gated=False, activation="gelu",
+                    vocab=256206, enc_len=4096, dtype="bfloat16")),
+    # 4.92 B params (9.84 GB) a layer: 6 of 64 layers and the embedding fill
+    # ~61 GB; the f32 pass at 2 layers ~43 GB.
+    "grok_1_314b": dict(
+        prompt=512, launches=(6, 6, 0), cut=dict(n_layers=6),
+        f32_cut=dict(n_layers=2), f32_launches=(2, 2, 0),
+        widths=dict(n_layers=64, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+                    d_ff=32768, mlp_gated=True, activation="gelu", vocab=131072, n_experts=8,
+                    top_k=2, n_shared_experts=0, capacity_factor=1.25, moe_group_size=4096,
+                    dtype="bfloat16")),
+    # 2.20 B params (4.41 GB) a layer: 12 of 48 layers ~55 GB; f32 at 4 ~39 GB.
+    "llama4_scout_17b_a16e": dict(
+        prompt=512, launches=(12, 12, 0), cut=dict(n_layers=12),
+        f32_cut=dict(n_layers=4), f32_launches=(4, 4, 0),
+        widths=dict(n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+                    d_ff=8192, mlp_gated=True, activation="silu", vocab=202048, n_experts=16,
+                    top_k=1, n_shared_experts=1, capacity_factor=1.25, moe_group_size=4096,
+                    rope_theta=500_000.0, dtype="bfloat16")),
 }
 
-# stablelm-12b's bf16 logit gate against the plain-version run: (max abs,
-# error RMS over the logits' RMS).  The plain path rounds the attention
-# logits and the softmax weights to bf16 (as the JAX model does); the
-# kernels keep both in f32.  That moves each layer's attention output by
-# about one bf16 step (2^-8 relative); over 40 independent layers such
-# steps add roughly in quadrature, sqrt(40) * 2^-8 ~ 2.5% of the logits'
-# RMS (std ~1.4).  Bounded at twice that, and by an absolute 0.25 (a few
-# bf16 steps at |logit| ~ 8).
-LOGIT_GATES = {"stablelm_12b": (0.25, 5e-2)}
+# The bf16 logit gates against the plain-version run: (max abs, error RMS
+# over the logits' RMS).  The plain path rounds the attention logits and
+# the softmax weights to bf16 (as the JAX model does); the kernels keep both
+# in f32.  That moves each kernel call's output by about one bf16 step
+# (2^-8 relative), and independent steps add roughly in quadrature.
+# - stablelm-12b: 40 layers, sqrt(40) * 2^-8 ~ 2.5% of the logits' RMS (std
+#   ~1.4).  Bounded at twice that, and by an absolute 0.25 (a few bf16
+#   steps at |logit| ~ 8).
+# - seamless-m4t-large-v2 (reckoned before its first run): a row's logits
+#   depend on 72 kernel calls, the 24 of the encoder (through the memory
+#   every cross-attention reads) and the prefill's 24 self- and 24
+#   cross-attention calls; sqrt(72) * 2^-8 ~ 3.3% of the logits' RMS (std
+#   0.02 * sqrt(1024) ~ 0.64).  Bounded at twice that, 7%, and by 0.25,
+#   twice the ~5.7 sigma (0.12) that 4 x 33 x 256206 such errors reach.
+# - the MoE models (reckoned before their first run): grok 6 layers
+#   sqrt(6) * 2^-8 ~ 1.0%, scout 12 layers ~1.4%.  Bounded at 5% and by
+#   0.25 (logit std 0.02 * sqrt(d_model) ~ 1.4-1.6, as stablelm's).  Held
+#   on a kernel run pinned to the plain run's routing (below).
+LOGIT_GATES = {"stablelm_12b": (0.25, 5e-2), "seamless_m4t_large_v2": (0.25, 7e-2),
+               "grok_1_314b": (0.25, 5e-2), "llama4_scout_17b_a16e": (0.25, 5e-2)}
+# MoE routing is discrete.  Reckoned before the first run: a one-step bf16
+# difference between the runs moves the router's input by ~2^-8, ~0.4% of
+# router logits of std ~1; that flips a top-k choice whose gap to the next
+# expert is smaller, and such gaps between the k-th and (k+1)-th of 8
+# (grok) or 16 (scout) normal logits have a density of ~2-2.5 at 0: ~1% of
+# the first layer's (token, choice)s.  Held at 4%, about 3x that (a kernel
+# off by a few % would flip a quarter of them).  Deeper layers flip more:
+# a flipped token goes through another expert, its hidden state moves by
+# tens of %, and through attention, which with random weights nearly
+# averages its keys' values, it moves every later row of its sequence by
+# more than a rounding step; at prefill it may also push another token
+# past an expert's capacity.  The first reading (grok: 4.6% of all
+# choices; the kept rows' logits 0.40 max abs) showed that this cascade,
+# which the reckoning had put at a few % of a row, is what sets the
+# end-to-end difference; so the deeper layers' shares are printed, and
+# the logits are held on a kernel run pinned to the plain run's routing,
+# where only the rounding the reckoning counts remains.
+MAX_FLIP_SHARE = 0.04
 # The SSM models' bf16 gate is set by the model itself.  A bf16 rounding
 # that lands one step apart (the kernel and the plain SSD sum in different
 # orders in f32, so the bf16 rounding of a layer's output flips now and
@@ -539,141 +621,273 @@ def compare_to_floor(label, got, plain, exact):
     return stats
 
 
-def teacher_forced_logits(model, tokens, generated, max_len):
-    """Prefill logits, then each decode step's logits fed the given tokens."""
+class RoutingLog:
+    """While open, records every MoE routing of the model (``moe.route``):
+    each token's chosen experts, the chosen and kept ones as (B, S, E)
+    masks, and the call's drop share.  With ``pin`` (the calls of an
+    earlier log), each call takes that call's choices in place of its own
+    top-k."""
+
+    def __init__(self, pin=None):
+        self.pin = pin
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, route = [], moe, moe.route
+
+        def logged(cfg, router, x, *, dropless=False, experts=None):
+            if self.pin is not None:
+                experts = self.pin[len(self.calls)]["experts"]
+            r = route(cfg, router, x, dropless=dropless, experts=experts)
+            shape = (*x.shape[:2], cfg.n_experts)
+            self.calls.append(dict(
+                experts=r.experts, chosen=r.onehot.sum(2).reshape(shape) > 0,
+                kept=(r.onehot * r.keep[..., None]).sum(2).reshape(shape) > 0,
+                drop_frac=1.0 - r.keep.float().mean().item()))
+            return r
+
+        self._route, moe.route = route, logged
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+        return False
+
+
+def routing_gate(label, got, want, n_layers):
+    """Compares the routing of two teacher-forced runs (``RoutingLog``
+    calls: the prefill's layers, then each decode step's).  Per layer, the
+    (token, layer) choices whose experts differ between the runs, and the
+    first flips among them (the token's kept experts agreed at every
+    earlier layer).  Fails if more than ``MAX_FLIP_SHARE`` of the first
+    layer's choices differ."""
+    if len(got) != len(want) or len(got) % n_layers:
+        raise AssertionError(f"{label}: {len(got)} and {len(want)} MoE calls")
+    flips, firsts, per_layer = [0] * n_layers, [0] * n_layers, [0] * n_layers
+    for i in range(0, len(got), n_layers):
+        diverged = None
+        for layer in range(n_layers):
+            g, w = got[i + layer], want[i + layer]
+            flip = (g["chosen"] != w["chosen"]).any(-1)  # (B, S)
+            first = flip if diverged is None else flip & ~diverged
+            differ = (g["kept"] != w["kept"]).any(-1)
+            diverged = differ if diverged is None else diverged | differ
+            flips[layer] += int(flip.sum().item())
+            firsts[layer] += int(first.sum().item())
+            per_layer[layer] += flip.numel()
+    stats = dict(first_layer_flip_share=flips[0] / per_layer[0],
+                 flip_share=sum(flips) / sum(per_layer),
+                 first_flip_share=sum(firsts) / sum(per_layer), choices=sum(per_layer),
+                 flips_per_layer=flips, first_flips_per_layer=firsts,
+                 prefill_drop_frac=[c["drop_frac"] for c in got[:n_layers]],
+                 prefill_drop_frac_plain=[c["drop_frac"] for c in want[:n_layers]])
+    log(f"slice: {label} routing, kernel run vs plain run, of {per_layer[0]} choices a "
+        f"layer: the first layer's differ on {flips[0]}, share "
+        f"{stats['first_layer_flip_share']:.3e} (gate {MAX_FLIP_SHARE}); all layers' "
+        f"{sum(flips)} of {sum(per_layer)}, share {stats['flip_share']:.3e}, per layer {flips}, "
+        f"first flips per layer {firsts}; moe_drop_frac at prefill per layer "
+        f"{json.dumps([round(x, 5) for x in stats['prefill_drop_frac']])}, plain run "
+        f"{json.dumps([round(x, 5) for x in stats['prefill_drop_frac_plain']])}")
+    if stats["first_layer_flip_share"] > MAX_FLIP_SHARE:
+        raise AssertionError(f"{label}: the kernel run routes unlike the plain-version run")
+    return stats
+
+
+def teacher_forced_logits(model, batch, generated, max_len, pin=None):
+    """The prefill step's logits, then each decode step's logits fed the
+    given tokens; returns them (B, 1 + steps, V) with the MoE routing
+    (``RoutingLog``, pinned to ``pin``'s choices when given)."""
     import torch
+    from repro_torch.serve import make_prefill_step
 
-    logits, state = model.prefill(tokens, max_len=max_len)
-    out = [logits]
-    for t in range(generated.shape[1]):
-        logits, state = model.decode_step(state, generated[:, t : t + 1])
-        out.append(logits)
-    return torch.stack([x[:, -1] for x in out], dim=1)  # (B, 1 + steps, V)
+    with RoutingLog(pin) as routing:
+        logits, state = make_prefill_step(model, max_len)(batch)
+        out = [logits]
+        for t in range(generated.shape[1]):
+            logits, state = model.decode_step(state, generated[:, t : t + 1])
+            out.append(logits)
+    return torch.stack([x[:, -1] for x in out], dim=1), routing.calls
 
 
-def expected_launches(spec, decode_steps):
-    prefill, per_step, ssd = spec["launches"]
+def gate_logits(label, arch, cfg, model, run, got, want, atol=None, rel_rms_tol=None):
+    """Holds the teacher-forced logits of a kernel run ``got`` against the
+    plain run ``want``: at ``LOGIT_GATES[arch]`` unless ``atol`` is given.
+    For MoE, the routing of the two runs first (``routing_gate``), and the
+    logits of a kernel run pinned to the plain run's routing (``run``
+    re-runs ``model`` teacher-forced)."""
+    if atol is None:
+        atol, rel_rms_tol = LOGIT_GATES[arch]
+    if cfg.family != "moe":
+        return compare_logits(label, got[0], want[0], atol, rel_rms_tol)
+    routing = routing_gate(label, got[1], want[1], cfg.n_layers)
+    d = got[0] - want[0]
+    free = dict(max_abs=d.abs().max().item(),
+                rel_rms=(d.pow(2).mean().sqrt() / want[0].pow(2).mean().sqrt()).item(),
+                greedy_agreement=(got[0].argmax(-1) == want[0].argmax(-1)).float().mean().item())
+    log(f"slice: {label} logits of the free-running kernel run vs plain run (information "
+        f"only): {json.dumps(free)}")
+    pinned = run(model, pin=want[1])
+    if any(not (p["experts"] == w["experts"]).all() for p, w in zip(pinned[1], want[1])):
+        raise AssertionError(f"{label}: the pinned run did not take the plain run's routing")
+    stats = compare_logits(f"{label} (routing pinned)", pinned[0], want[0], atol, rel_rms_tol)
+    return dict(stats, routing=routing, free_running=free)
+
+
+def expected_launches(launches, decode_steps):
+    prefill, per_step, ssd = launches
     return {"flash_prefill": prefill, "flash_decode": per_step * decode_steps,
             "ssd_intra_chunk": ssd}
+
+
+def make_inputs(cfg, gen, batch, prompt):
+    """Prompt tokens from ``gen``; for the encoder-decoder also the stub
+    frame embeddings (batch, enc_len, d_model) in the config's type."""
+    import torch
+    from repro_torch import torch_dtype
+
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                                      device="cuda")}
+    if cfg.family == "encdec":
+        inputs["enc_emb"] = torch.randn((batch, cfg.enc_len, cfg.d_model), generator=gen,
+                                        device="cuda").to(torch_dtype(cfg.dtype))
+    return inputs
 
 
 def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import LM, get_model
-    from repro_torch.serve import Engine
+    from repro_torch.models import get_model
+    from repro_torch.serve import Engine, make_prefill_step
 
-    cfg = get_config(arch)
-    widths = {k: getattr(cfg, k) for k in spec["widths"]}
+    published = get_config(arch)
+    widths = {k: getattr(published, k) for k in spec["widths"]}
     if widths != spec["widths"]:
         raise AssertionError(f"{arch} is not at its published widths: {widths}")
-    log(f"slice: {arch} at its published widths {json.dumps(widths)}")
+    cut = spec.get("cut", {})
+    cfg = published.replace(**cut)
+    log(f"slice: {arch} at its published widths {json.dumps(widths)}; "
+        + (f"cut {json.dumps(cut)}" if cut else "no cut"))
     prompt = spec["prompt"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     model = get_model(cfg).init(gen, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"slice: {arch} {n_params / 1e9:.2f} B params "
-        f"({n_params * 2 / 1e9:.1f} GB bf16) initialized in {time.perf_counter() - t0:.1f} s")
-    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen, device="cuda")
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"slice: {arch} {n_params / 1e9:.2f} B params in {cfg.n_layers} layers "
+        f"({n_bytes / 1e9:.1f} GB) initialized in {time.perf_counter() - t0:.1f} s")
+    inputs = make_inputs(cfg, gen, batch, prompt)
     max_len = prompt + gen_steps + 1
     engine = Engine(model, max_len=max_len)
-    engine.generate({"tokens": tokens}, 2)  # warm-up: library handles, allocator
+    engine.generate(inputs, 2)  # warm-up: library handles, allocator
 
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.generate({"tokens": tokens}, gen_steps)
+    out = engine.generate(inputs, gen_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches, shapes = dict(ops.LAUNCHES), dict(ops.LAUNCH_SHAPES)
     log(f"slice: {arch} Engine.generate batch={batch} prompt={prompt} steps={out.steps} "
-        f"wall={wall * 1e3:.1f} ms launches={launches}")
+        f"wall={wall * 1e3:.1f} ms launches={launches} by shape "
+        f"{json.dumps([[k, n] for k, n in shapes.items()])}")
     if out.tokens.shape != (batch, gen_steps) or not ((out.tokens >= 0) &
                                                       (out.tokens < cfg.vocab)).all():
         raise AssertionError(f"bad tokens: shape {out.tokens.shape}")
-    want = expected_launches(spec, gen_steps)
+    want = expected_launches(spec["launches"], gen_steps)
     if launches != want:
         raise AssertionError(f"{arch} kernel launches {launches}, expected {want}")
 
     # The same weights on the plain versions, teacher-forced on the tokens
     # the kernel run produced.
-    plain = LM(cfg.replace(attn_impl="naive"))
+    plain = get_model(cfg.replace(attn_impl="naive"))
     plain.load_state_dict(model.state_dict(), assign=True)
     generated = torch.from_numpy(out.tokens).to("cuda")
-    got = teacher_forced_logits(model, tokens, generated, max_len)
-    want = teacher_forced_logits(plain, tokens, generated, max_len)
+
+    def run(m, pin=None):
+        return teacher_forced_logits(m, inputs, generated, max_len, pin)
+
+    got, want = run(model), run(plain)
     if arch in LOGIT_GATES:
-        bf16 = compare_logits(f"{arch} bf16", got, want, *LOGIT_GATES[arch])
+        bf16 = gate_logits(f"{arch} bf16", arch, cfg, model, run, got, want)
     else:
-        exact = LM(cfg.replace(dtype="float32", attn_impl="naive"))
+        exact = get_model(cfg.replace(dtype="float32", attn_impl="naive"))
         exact.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
                               assign=True)
-        bf16 = compare_to_floor(f"{arch} bf16", got, want,
-                                teacher_forced_logits(exact, tokens, generated, max_len))
+        bf16 = compare_to_floor(f"{arch} bf16", got[0], want[0],
+                                teacher_forced_logits(exact, inputs, generated, max_len)[0])
         del exact
     del got, want
 
-    # Rates: prefill alone; decode per step from Engine.generate itself, as
-    # the difference between this run and runs that decode once.
+    # Rates: the prefill step alone (for the encoder-decoder the encoder
+    # and the decoder's prefill, as the Engine runs them); decode per step
+    # from Engine.generate itself, as the difference between this run and
+    # runs that decode once.
+    prefill_step = make_prefill_step(model, max_len)
     prefill_ms, one_step_ms = [], []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.prefill(tokens, max_len=max_len)
+        prefill_step(inputs)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
-        engine.generate({"tokens": tokens}, 1)
+        engine.generate(inputs, 1)
         torch.cuda.synchronize()
         one_step_ms.append((time.perf_counter() - t0) * 1e3)
     decode_ms = (wall * 1e3 - sorted(one_step_ms)[1]) / (gen_steps - 1)
-    profile_slice(arch, model, tokens, max_len)
+    profile_slice(arch, model, inputs, max_len)
     rates = dict(arch=arch, card=card, prefill_ms=sorted(prefill_ms)[1],
                  decode_ms_per_step=decode_ms, generate_wall_ms=wall * 1e3,
                  tok_per_s=batch * out.steps / wall, batch=batch, prompt=prompt,
-                 steps=out.steps, launches=launches, logits_bf16=bf16)
+                 steps=out.steps, n_layers=cfg.n_layers, launches=launches, logits_bf16=bf16)
 
     # The same draws in f32, where the kernel and plain paths differ only in
     # the order of f32 sums: a tight check of the kernels' wiring at full
-    # width.
-    del model, plain, engine
+    # width (at ``f32_cut`` depth where the f32 weights would not fit).
+    del model, plain, engine, prefill_step, run
     torch.cuda.empty_cache()
-    cfg32 = cfg.replace(dtype="float32")
+    cfg32 = cfg.replace(dtype="float32", **spec.get("f32_cut", {}))
+    inputs32 = {k: (v.float() if v.is_floating_point() else v) for k, v in inputs.items()}
     model = get_model(cfg32).init(torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    plain = LM(cfg32.replace(attn_impl="naive"))
+    plain = get_model(cfg32.replace(attn_impl="naive"))
     plain.load_state_dict(model.state_dict(), assign=True)
     f32_steps = 8
+
+    def run32(m, pin=None):
+        return teacher_forced_logits(m, inputs32, generated[:, :f32_steps], max_len, pin)
+
     ops.reset_launches()
-    got = teacher_forced_logits(model, tokens, generated[:, :f32_steps], max_len)
-    want = expected_launches(spec, f32_steps)
+    got = run32(model)
+    want = expected_launches(spec.get("f32_launches", spec["launches"]), f32_steps)
     if dict(ops.LAUNCHES) != want:
         raise AssertionError(f"{arch} f32 kernel launches {dict(ops.LAUNCHES)}, "
                              f"expected {want}")
-    rates["logits_f32"] = compare_logits(
-        f"{arch} f32", got,
-        teacher_forced_logits(plain, tokens, generated[:, :f32_steps], max_len),
-        LOGIT_ATOL_F32)
+    rates["logits_f32"] = gate_logits(f"{arch} f32 ({cfg32.n_layers} layers)", arch, cfg32,
+                                      model, run32, got, run32(plain), atol=LOGIT_ATOL_F32)
     del model, plain
     torch.cuda.empty_cache()
-    return launches, rates
+    return launches, shapes, rates
 
 
-def profile_slice(arch, model, tokens, max_len, decode_steps=8, top=8):
-    """torch.profiler over one prefill and a few decode steps: wall time,
-    the device's busy and idle share, and the kernels that take the most."""
+def profile_slice(arch, model, inputs, max_len, decode_steps=8, top=8):
+    """torch.profiler over one prefill step and a few decode steps: wall
+    time, the device's busy and idle share, and the kernels that take the
+    most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import make_prefill_step
 
+    prefill_step = make_prefill_step(model, max_len)
     for label in ("prefill", "decode"):
-        logits, state = model.prefill(tokens, max_len=max_len)
+        logits, state = prefill_step(inputs)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if label == "prefill":
-                model.prefill(tokens, max_len=max_len)
+                prefill_step(inputs)
             else:
                 for _ in range(decode_steps):
                     nxt = torch.argmax(logits[:, -1], dim=-1)
@@ -710,6 +924,43 @@ KERNELS = {
 }
 
 
+def kernel_rows(checked, paths):
+    """The ``kernels`` line's rows: one per kernel, from the checks of
+    phase 2 (``checked``: a list of rows per (kernel, path)) and the
+    launches of phase 3 (``paths``: per path its launches, launches by
+    shape and rates)."""
+    rows = []
+    for name, meta in KERNELS.items():
+        # One entry per (path, shape) at which the kernel ran, each with the
+        # launches at that shape in the path's run and the check, times and
+        # bound at that shape; the row is the first entry, the others follow
+        # in other_paths.  Every shape a path ran must have been checked,
+        # and every shape checked for a path must have run there.
+        entries = []
+        for arch, (launches, shapes, _) in paths.items():
+            ran = {key[1]: n for key, n in shapes.items() if key[0] == name}
+            if sum(ran.values()) != launches[name]:
+                raise AssertionError(f"{name} on {arch}: launches by shape {ran} do not sum "
+                                     f"to {launches[name]}")
+            by_shape = {row["key"][1]: row for row in checked.get((name, arch), [])}
+            if set(ran) != set(by_shape):
+                raise AssertionError(f"{name} on {arch} ran at {sorted(ran)}, checked at "
+                                     f"{sorted(by_shape)}")
+            for shape, n in ran.items():
+                row = by_shape[shape]
+                entries.append(dict(
+                    path=arch, launches=n, max_abs_err=row["max_abs_err"],
+                    tol=row["tol"], ms=row["ms"], plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=row["library_ms"], shape=row["shape"], dtype=row["dtype"],
+                    **{k: row[k] for k in ("causal", "ms_warm", "plain_ms_warm",
+                                           "library_ms_warm", "cold_copies") if k in row}))
+        if not entries:
+            raise AssertionError(f"{name} was launched on no path")
+        rows.append(dict(name=name, **meta, **entries[0], other_paths=entries[1:]))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -731,31 +982,9 @@ def main() -> int:
 
     checked = {**kernel_phase(), **ssd_phase()}
     paths = {arch: slice_phase(card, arch, spec) for arch, spec in SLICES.items()}
-    rows = []
-    for name, meta in KERNELS.items():
-        # One entry per path that launched the kernel, each with that path's
-        # launches and the check, times and bound at that path's shape; the
-        # row is the first path's entry, the others follow in other_paths.
-        entries = []
-        for arch, (launches, _) in paths.items():
-            if not launches[name]:
-                continue
-            if (name, arch) not in checked:
-                raise AssertionError(f"{name} ran on {arch} but was not checked at its shape")
-            row = checked[(name, arch)]
-            entries.append(dict(
-                path=arch, launches=launches[name], max_abs_err=row["max_abs_err"],
-                tol=row["tol"], ms=row["ms"], plain_ms=row["plain_ms"],
-                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"], shape=row["shape"], dtype=row["dtype"],
-                **{k: row[k] for k in ("ms_warm", "plain_ms_warm", "library_ms_warm",
-                                       "cold_copies") if k in row}))
-        if not entries:
-            raise AssertionError(f"{name} was launched on no path")
-        rows.append(dict(name=name, **meta, **entries[0], other_paths=entries[1:]))
-    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"kernels": kernel_rows(checked, paths)}))
     log(card)
-    for arch, (_, rates) in paths.items():
+    for arch, (_, _, rates) in paths.items():
         log(f"rates {arch} [{card}]: prefill {rates['prefill_ms']:.2f} ms "
             f"(B={rates['batch']}, S={rates['prompt']}), decode "
             f"{rates['decode_ms_per_step']:.2f} ms/step, {rates['tok_per_s']:.1f} generated "

@@ -7,11 +7,14 @@ every decode) into the kernels' layout, and copy the SSD's B and C out to
 every head, the kernels here read the model's layout through strides.
 
 ``LAUNCHES`` counts the kernel launches of each op, so a run can show that
-its path went through the kernels.
+its path went through the kernels; ``LAUNCH_SHAPES`` counts them by call
+shape, so a path that runs a kernel at several shapes (an encoder, a
+decoder, its cross-attention) shows how often it ran each.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -22,11 +25,15 @@ from .flash_attention import flash_prefill
 from .ssd_scan import ssd_intra_chunk as _ssd_kernel
 
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0, "ssd_intra_chunk": 0}
+# (kernel, shape) -> launches; the shapes: flash_prefill (B, Sq, Sk, H, K, hd,
+# causal), flash_decode (B, S, H, K, hd), ssd_intra_chunk (B, S, nh, hd, N).
+LAUNCH_SHAPES: Counter = Counter()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def flash_attention(
@@ -49,6 +56,8 @@ def flash_attention(
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     flash_prefill(q, k, v, out, scale=scale, causal=causal, window=window, softcap=softcap)
     LAUNCHES["flash_prefill"] += 1
+    B, Sq, H, hd = q.shape
+    LAUNCH_SHAPES["flash_prefill", (B, Sq, k.shape[1], H, k.shape[2], hd, causal)] += 1
     return out
 
 
@@ -75,6 +84,8 @@ def decode_attention(
         scale=scale, window=window, softcap=softcap,
     )
     LAUNCHES["flash_decode"] += 1
+    B, _, H, hd = q.shape
+    LAUNCH_SHAPES["flash_decode", (B, k_cache.shape[1], H, k_cache.shape[2], hd)] += 1
     return out[:, None]
 
 
@@ -107,6 +118,7 @@ def _intra_chunk(x, a, Bm, Cm, Q: int) -> Tuple[torch.Tensor, torch.Tensor, torc
     cum = torch.empty(B_, S, nh, **f32)
     _ssd_kernel(x, a, Bm, Cm, y, st, cum, chunk=Q)
     LAUNCHES["ssd_intra_chunk"] += 1
+    LAUNCH_SHAPES["ssd_intra_chunk", (B_, S, nh, hd, N)] += 1
     return y, st, cum
 
 

@@ -6,9 +6,15 @@
       --batch 4 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1p2b \
       --batch 4 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless_m4t_large_v2 \
+      --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok_1_314b --smoke \
+      --device cpu    # also llama4_scout_17b_a16e; neither fits one card whole
 
 The SSM and hybrid families take a prompt of at most ``ssm_chunk`` tokens
-or a multiple of it.
+or a multiple of it.  The encoder-decoder's encoder reads a stub input,
+frame embeddings (batch, ``enc_len``, d_model) drawn from the seed in the
+config's type, in place of a speech frontend.
 
 Runs on the CUDA device unless ``--device cpu`` is given; random weights
 from ``--seed``.
@@ -21,7 +27,7 @@ import time
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import get_model
 from repro_torch.models.mamba2 import check_prompt_len
@@ -59,11 +65,15 @@ def main(argv=None) -> None:
     model = get_model(cfg).init(gen, device=device)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
                            device=device)
+    batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        batch["enc_emb"] = torch.randn((args.batch, cfg.enc_len, cfg.d_model), generator=gen,
+                                       device=device).to(torch_dtype(cfg.dtype))
 
     eng = Engine(model, max_len=args.prompt_len + args.gen + 1, device=device)
     t0 = time.perf_counter()
     out = eng.generate(
-        {"tokens": tokens}, args.gen, temperature=args.temperature,
+        batch, args.gen, temperature=args.temperature,
         generator=gen if args.temperature > 0 else None,
     )
     if device.type == "cuda":

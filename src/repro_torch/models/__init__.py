@@ -1,21 +1,16 @@
-"""Model zoo of the port: the dense, VLM, SSM and hybrid families so far."""
+"""Model zoo of the port: every family of the JAX package."""
+
+from typing import Union
 
 from .config import ModelConfig
+from .encdec import EncDecLM
 from .lm import LM
 
-# Families that later slices port, with the ROADMAP.md item that ports each.
-_LATER = {
-    "moe": "Queue 1 item 6 (models/moe.py)",
-    "encdec": "Queue 1 item 8 (models/encdec.py)",
-}
 
-
-def get_model(cfg: ModelConfig) -> LM:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet: ROADMAP.md {_LATER[cfg.family]}"
-        )
+def get_model(cfg: ModelConfig) -> Union[LM, EncDecLM]:
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
     return LM(cfg)
 
 
-__all__ = ["ModelConfig", "LM", "get_model"]
+__all__ = ["ModelConfig", "LM", "EncDecLM", "get_model"]

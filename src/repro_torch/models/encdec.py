@@ -1,0 +1,209 @@
+"""Encoder-decoder backbone (seamless-m4t-large-v2).
+
+The port of ``repro.models.encdec.EncDecLM``.  As in the reference, the
+speech frontend is a stub: the encoder takes precomputed frame embeddings
+``enc_emb`` (B, S_enc, D).  A bidirectional encoder over them, then a
+causal decoder with cross-attention to the encoder's output (``memory``);
+the embedding is tied to the output projection and there is no softcap.
+
+Parameter names follow the JAX tree (``embed``, ``enc_norm``,
+``final_norm``, ``enc_blocks.{ln1,ln2,attn.*,mlp.*}``,
+``dec_blocks.{ln1,ln_x,ln2,attn.*,xattn.*,mlp.*}``), each block's weights
+stacked (L, ...), so ``weights.load_jax_params`` takes a JAX tree as it is.
+On CUDA the encoder, the decoder's self-attention and the prefill's
+cross-attention run the prefill kernel, the decode step's self-attention
+the decode kernel; the decode step's cross-attention against the K/V
+precomputed in ``decode_init`` is plain PyTorch, as the reference computes
+it outside any kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from .. import resolve_device, torch_dtype
+from .config import ModelConfig
+from .layers import (
+    _project,
+    attn_apply,
+    attn_decode_apply,
+    attn_init,
+    cross_attn_apply,
+    mlp_apply,
+    mlp_init,
+    rms_norm,
+)
+from .lm import _attn_shapes, _cast, _fill, _mlp_shapes, _params, _Stacked
+
+Tensor = torch.Tensor
+
+
+class _Stack(_Stacked):
+    """A stack of n blocks: the named norms (n, D), attention groups and
+    one MLP, each weight stacked (n, ...)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, n: int, norms: Sequence[str],
+                 attns: Sequence[str]):
+        super().__init__()
+        L = (n,)
+        for name, p in _params({k: L + (cfg.d_model,) for k in norms}, dtype).items():
+            self.register_parameter(name, p)
+        self.attns = tuple(attns)
+        for name in attns:
+            setattr(self, name, _params(_attn_shapes(cfg, L), dtype))
+        self.mlp = _params(_mlp_shapes(cfg, L), dtype)
+        self.n = n
+
+
+class EncDecLM(nn.Module):
+    """The encoder-decoder for one ``encdec`` config.  Built on the meta
+    device; ``init`` materializes it."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.family != "encdec":
+            raise ValueError(f"EncDecLM ports the encdec family, not {cfg.family!r}")
+        self.cfg = cfg
+        dt = torch_dtype(cfg.dtype)
+        D = cfg.d_model
+        for name, p in _params({"embed": (cfg.vocab, D), "enc_norm": (D,),
+                                "final_norm": (D,)}, dt).items():
+            self.register_parameter(name, p)
+        self.enc_blocks = _Stack(cfg, dt, cfg.n_enc_layers, ("ln1", "ln2"), ("attn",))
+        self.dec_blocks = _Stack(cfg, dt, cfg.n_layers, ("ln1", "ln_x", "ln2"),
+                                 ("attn", "xattn"))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, device="cuda") -> "EncDecLM":
+        """Random weights with the reference's shapes and scales: embed
+        N(0,1)*0.02, attention N*D^-0.5, w_out N*F^-0.5, norms zeros.  The
+        generator must live on ``device``."""
+        dev = resolve_device(device)
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        self.to_empty(device=dev)
+        for p in self.parameters():
+            p.zero_()
+        self.embed.copy_(torch.randn(self.embed.shape, generator=generator, device=dev) * 0.02)
+        for stack in (self.enc_blocks, self.dec_blocks):
+            for i in range(stack.n):
+                for name in stack.attns:
+                    _fill(getattr(stack, name), i, attn_init(cfg, generator, dt, dev))
+                _fill(stack.mlp, i, mlp_init(cfg, generator, dt, dev))
+        return self
+
+    # ------------------------------------------------------------------
+    # Forward
+    # ------------------------------------------------------------------
+    def encode(self, enc_emb: Tensor) -> Tensor:
+        """enc_emb (B, S_enc, D) frame embeddings -> memory (B, S_enc, D):
+        non-causal self-attention blocks, then the encoder's final norm."""
+        cfg = self.cfg
+        x = enc_emb
+        for i in range(self.enc_blocks.n):
+            p = _cast(self.enc_blocks.layer(i), x.dtype)
+            x = x + attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=False)
+            x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        return rms_norm(x, self.enc_norm)
+
+    def decode_seq(self, tokens: Tensor, memory: Tensor) -> Tensor:
+        """Teacher-forced decoder pass; returns the final hidden states."""
+        cfg = self.cfg
+        x = self.embed[tokens]
+        for i in range(self.dec_blocks.n):
+            p = _cast(self.dec_blocks.layer(i), x.dtype)
+            x = x + attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=True)
+            x = x + cross_attn_apply(cfg, p["xattn"], rms_norm(x, p["ln_x"]), memory)
+            x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        return rms_norm(x, self.final_norm)
+
+    def hidden_states(self, batch: Dict[str, Tensor], *, with_aux: bool = False):
+        """batch {"tokens", "enc_emb"} -> hidden states; with ``with_aux``,
+        also the (empty) aux metrics, as ``LM.hidden_states``."""
+        hidden = self.decode_seq(batch["tokens"], self.encode(batch["enc_emb"]))
+        return (hidden, {}) if with_aux else hidden
+
+    def logits(self, hidden: Tensor) -> Tensor:
+        """Tied embedding, in the param type, then f32."""
+        return torch.matmul(hidden, self.embed.T).float()
+
+    def apply(self, batch: Dict[str, Tensor]) -> Tensor:
+        return self.logits(self.hidden_states(batch))
+
+    # ------------------------------------------------------------------
+    # Prefill and decode
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens: Tensor, memory: Tensor, max_len: Optional[int] = None):
+        """Teacher-forced decoder pass that fills the self-attention caches.
+        Returns (last-position logits (B, 1, V), decode state) with the
+        caches (L, B, max_len, K, hd), zero past the prompt."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        state = self.decode_init(B, max_len or S, memory)
+        ks, vs = state["kv"]
+        x = self.embed[tokens]
+        for i in range(self.dec_blocks.n):
+            p = self.dec_blocks.layer(i)
+            h, (k, v) = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=True,
+                                   return_kv=True)
+            ks[i, :, :S] = k
+            vs[i, :, :S] = v
+            x = x + h
+            x = x + cross_attn_apply(cfg, p["xattn"], rms_norm(x, p["ln_x"]), memory)
+            x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        state["pos"].fill_(S)
+        return self.logits(rms_norm(x[:, -1:], self.final_norm)), state
+
+    @torch.no_grad()
+    def decode_init(self, batch: int, max_len: int, memory: Tensor) -> Dict[str, Any]:
+        """Zero self-attention caches (L, B, max_len, K, hd), and the
+        cross-attention K/V of ``memory`` computed once a request, (L, B,
+        S_enc, K, hd) each."""
+        cfg = self.cfg
+        dev, dt = self.embed.device, self.embed.dtype
+        L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        shape = (L, batch, max_len, K, hd)
+        xk = torch.empty((L, *memory.shape[:2], K, hd), dtype=memory.dtype, device=dev)
+        xv = torch.empty_like(xk)
+        for i in range(L):
+            xk[i] = _project(memory, self.dec_blocks.xattn["wk"][i])
+            xv[i] = _project(memory, self.dec_blocks.xattn["wv"][i])
+        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                "kv": (torch.zeros(shape, dtype=dt, device=dev),
+                       torch.zeros(shape, dtype=dt, device=dev)),
+                "xk": xk, "xv": xv}
+
+    def _cross_decode(self, p, x: Tensor, xk: Tensor, xv: Tensor) -> Tensor:
+        """The reference's decode cross-attention, inline: logits in the
+        input type, then f32, scaled; the f32 softmax weights cast to the
+        cache's type before their product with V."""
+        q = _project(x, p["wq"])
+        B, _, H, hd = q.shape
+        K = xk.shape[2]
+        qh = q.reshape(B, K, H // K, hd)
+        logits = torch.einsum("bkrd,bskd->bkrs", qh, xk).float() * self.cfg.head_dim ** -0.5
+        w = torch.softmax(logits, dim=-1).to(xv.dtype)
+        o = torch.einsum("bkrs,bskd->bkrd", w, xv).reshape(B, 1, H, hd)
+        return _project(o, p["wo"], 2)
+
+    @torch.no_grad()
+    def decode_step(self, state: Dict[str, Any], tokens: Tensor):
+        """tokens (B, 1) -> (logits (B, 1, V), new state).  The caches in
+        ``state`` are updated in place; the returned state shares them."""
+        cfg = self.cfg
+        pos = state["pos"]
+        ks, vs = state["kv"]
+        x = self.embed[tokens]
+        for i in range(self.dec_blocks.n):
+            p = self.dec_blocks.layer(i)
+            h, _ = attn_decode_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), (ks[i], vs[i]), pos)
+            x = x + h
+            x = x + self._cross_decode(p["xattn"], rms_norm(x, p["ln_x"]),
+                                       state["xk"][i], state["xv"][i])
+            x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        logits = self.logits(rms_norm(x, self.final_norm))
+        return logits, {**state, "pos": pos + 1}

@@ -275,6 +275,17 @@ def attn_apply(
     return y
 
 
+def cross_attn_apply(cfg: ModelConfig, p, x: Tensor, memory: Tensor) -> Tensor:
+    """Decoder cross-attention: queries from x, keys and values from
+    ``memory`` (B, S_enc, D); no RoPE, no mask.  On CUDA the prefill
+    kernel's non-causal mode with Sq != Sk."""
+    q = _project(x, p["wq"])
+    k = _project(memory, p["wk"])
+    v = _project(memory, p["wv"])
+    out = attention(q, k, v, cfg=cfg, causal=False)
+    return _project(out, p["wo"], 2)
+
+
 def attn_decode_apply(
     cfg: ModelConfig,
     p,

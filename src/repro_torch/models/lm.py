@@ -1,12 +1,13 @@
-"""Decoder-only language model: dense, VLM, SSM and hybrid families.
+"""Decoder-only language model: dense, VLM, MoE, SSM and hybrid families.
 
 The port of ``repro.models.lm.LM``.  ``LM`` is an ``nn.Module`` whose
 parameter names follow the JAX tree paths (``embed``, ``unembed``,
 ``final_norm``, ``blocks.ln1``, ``blocks.attn.wq``, ``blocks.mlp.w_in``,
-``blocks.mamba.in_proj``, ``shared.attn.wq``, ...) with the block weights
-stacked ``(L, ...)`` as in JAX, so weights bridge key for key.  The layer
-loop is a Python ``for``, so whether a layer is local (sliding window), and
-whether zamba2's shared attention block follows it, are static bools.
+``blocks.moe.router``, ``blocks.moe.shared.w_in``, ``blocks.mamba.in_proj``,
+``shared.attn.wq``, ...) with the block weights stacked ``(L, ...)`` as in
+JAX, so weights bridge key for key.  The layer loop is a Python ``for``, so
+whether a layer is local (sliding window), and whether zamba2's shared
+attention block follows it, are static bools.
 
 The hybrid (zamba2): ONE shared attention+MLP block (``shared``) is applied
 after every ``hybrid_period``-th Mamba layer; each application has its own
@@ -41,6 +42,7 @@ from .mamba2 import (
     mamba_init,
     mamba_state_init,
 )
+from .moe import moe_apply, moe_init, moe_shapes
 
 Tensor = torch.Tensor
 
@@ -86,8 +88,41 @@ def _fill(stacked: nn.ParameterDict, i: int, fresh: Dict[str, Tensor]) -> None:
         stacked[name][i].copy_(w)
 
 
-class _Blocks(nn.Module):
-    """The stacked (L, ...) weights of the attention blocks."""
+def _layer(m: nn.Module, i: int) -> Dict[str, Any]:
+    p: Dict[str, Any] = {n: w[i] for n, w in m.named_parameters(recurse=False)}
+    for n, child in m.named_children():
+        p[n] = _layer(child, i)
+    return p
+
+
+class _Stacked(nn.Module):
+    """A module of stacked (L, ...) weights."""
+
+    def layer(self, i: int) -> Dict[str, Any]:
+        """Layer i's weights as the nested dict the layer functions take,
+        keyed as the module names its parameters."""
+        return _layer(self, i)
+
+
+class _MoE(_Stacked):
+    """The stacked MoE weights: the router (L, D, E) in f32, as in the
+    reference, beside the experts and the shared expert in the model type."""
+
+    def __init__(self, cfg: ModelConfig, dtype):
+        super().__init__()
+        L = (cfg.n_layers,)
+        params = {**_params({"router": L + (cfg.d_model, cfg.n_experts)}, torch.float32),
+                  **_params({k: L + s for k, s in moe_shapes(cfg).items()}, dtype)}
+        for name, p in params.items():
+            self.register_parameter(name, p)
+        if cfg.n_shared_experts:
+            shared = cfg.replace(d_ff=cfg.d_ff * cfg.n_shared_experts)
+            self.shared = _params(_mlp_shapes(shared, L), dtype)
+
+
+class _Blocks(_Stacked):
+    """The stacked (L, ...) weights of the attention blocks: an MLP, or for
+    the MoE family the experts."""
 
     def __init__(self, cfg: ModelConfig, dtype):
         super().__init__()
@@ -95,17 +130,13 @@ class _Blocks(nn.Module):
         for name, p in _params(_norm_shapes(cfg, L), dtype).items():
             self.register_parameter(name, p)
         self.attn = _params(_attn_shapes(cfg, L), dtype)
-        self.mlp = _params(_mlp_shapes(cfg, L), dtype)
-
-    def layer(self, i: int) -> Dict[str, Any]:
-        """Layer i's weights as the nested dict the layer functions take."""
-        p: Dict[str, Any] = {n: w[i] for n, w in self.named_parameters(recurse=False)}
-        p["attn"] = {n: w[i] for n, w in self.attn.items()}
-        p["mlp"] = {n: w[i] for n, w in self.mlp.items()}
-        return p
+        if cfg.family == "moe":
+            self.moe = _MoE(cfg, dtype)
+        else:
+            self.mlp = _params(_mlp_shapes(cfg, L), dtype)
 
 
-class _SSMBlocks(nn.Module):
+class _SSMBlocks(_Stacked):
     """The stacked (L, ...) weights of the Mamba-2 blocks; A_log, D and
     dt_bias stay f32 in any model type, as in the reference."""
 
@@ -119,9 +150,6 @@ class _SSMBlocks(nn.Module):
             "conv_b": (L, di + 2 * N), "norm": (L, di), "out_proj": (L, di, D)}, dtype)
         self.mamba.update(_params({"A_log": (L, nh), "D": (L, nh), "dt_bias": (L, nh)},
                                   torch.float32))
-
-    def layer(self, i: int) -> Dict[str, Any]:
-        return {"ln1": self.ln1[i], "mamba": {n: w[i] for n, w in self.mamba.items()}}
 
 
 class _SharedBlock(nn.Module):
@@ -142,12 +170,12 @@ class _SharedBlock(nn.Module):
 
 
 class LM(nn.Module):
-    """Dense / VLM / SSM / hybrid decoder for one config."""
+    """Dense / VLM / MoE / SSM / hybrid decoder for one config."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
-            raise ValueError(f"LM ports the dense, vlm, ssm and hybrid families, "
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+            raise ValueError(f"LM ports the dense, vlm, moe, ssm and hybrid families, "
                              f"not {cfg.family!r}")
         self.cfg = cfg
         self.is_ssm = cfg.family in ("ssm", "hybrid")
@@ -173,8 +201,8 @@ class LM(nn.Module):
     def init(self, generator: torch.Generator, device="cuda") -> "LM":
         """Materializes the weights on ``device`` with the reference's shapes
         and scales: embed/unembed N(0,1)*0.02, attention N*D^-0.5, w_out
-        N*F^-0.5, Mamba's as ``mamba_init``, norms zeros.  The generator must
-        live on ``device``."""
+        N*F^-0.5, Mamba's as ``mamba_init``, the experts' as ``moe_init``,
+        norms zeros.  The generator must live on ``device``."""
         dev = resolve_device(device)
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
@@ -191,7 +219,10 @@ class LM(nn.Module):
                 _fill(self.blocks.mamba, i, mamba_init(cfg, generator, dt, dev))
             else:
                 _fill(self.blocks.attn, i, attn_init(cfg, generator, dt, dev))
-                _fill(self.blocks.mlp, i, mlp_init(cfg, generator, dt, dev))
+                if cfg.family == "moe":
+                    moe_init(cfg, generator, dt, dev, out=self.blocks.moe.layer(i))
+                else:
+                    _fill(self.blocks.mlp, i, mlp_init(cfg, generator, dt, dev))
         if cfg.family == "hybrid":
             for group, fresh in (("attn", attn_init(cfg, generator, dt, dev)),
                                  ("mlp", mlp_init(cfg, generator, dt, dev))):
@@ -202,13 +233,21 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     # Layer body
     # ------------------------------------------------------------------
-    def _block_tail(self, p, x: Tensor, h: Tensor) -> Tensor:
-        """Residual around attention output h, then the MLP half."""
+    def _block_tail(self, p, x: Tensor, h: Tensor, *, dropless: bool = False,
+                    auxs: Optional[list] = None) -> Tensor:
+        """Residual around attention output h, then the MLP half: the MLP,
+        or the experts (``dropless`` in decode), whose aux metrics are
+        appended to ``auxs``."""
         cfg = self.cfg
         if cfg.post_norm:
             h = rms_norm(h, p["ln1_post"])
         x = x + h
-        h2 = mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        if "moe" in p:
+            h2, aux = moe_apply(cfg, p["moe"], rms_norm(x, p["ln2"]), dropless=dropless)
+            if auxs is not None:
+                auxs.append(aux)
+        else:
+            h2 = mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
         if cfg.post_norm:
             h2 = rms_norm(h2, p["ln2_post"])
         return x + h2
@@ -222,16 +261,29 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     # Forward: final hidden states
     # ------------------------------------------------------------------
-    def hidden_states(self, tokens: Tensor) -> Tensor:
+    def hidden_states(self, tokens: Tensor, *, with_aux: bool = False):
+        """The final hidden states; with ``with_aux``, also the MoE aux
+        metrics' means over the layers (``{}`` for other families).
+
+        As JAX's ``_attn_stack``, every floating block param is cast to the
+        compute type first: in bf16 that rounds the MoE router, which
+        ``prefill`` and ``decode_step`` use in f32."""
         cfg = self.cfg
         x = self._embed(tokens)
+        auxs: list = []
         if self.is_ssm:
-            return rms_norm(self._ssm_stack(x), self.final_norm)
-        for i in range(cfg.n_layers):
-            p = self.blocks.layer(i)
-            h = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), is_local=cfg.is_local_layer(i))
-            x = self._block_tail(p, x, h)
-        return rms_norm(x, self.final_norm)
+            x = self._ssm_stack(x)
+        else:
+            for i in range(cfg.n_layers):
+                p = _cast(self.blocks.layer(i), x.dtype)
+                h = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]),
+                               is_local=cfg.is_local_layer(i))
+                x = self._block_tail(p, x, h, auxs=auxs)
+        hidden = rms_norm(x, self.final_norm)
+        if not with_aux:
+            return hidden
+        aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]} if auxs else {}
+        return hidden, aux
 
     def _ssm_stack(self, x: Tensor) -> Tensor:
         """JAX's ``_ssm_stack``: every floating block param is cast to the
@@ -356,7 +408,7 @@ class LM(nn.Module):
                 cfg, p["attn"], rms_norm(x, p["ln1"]), (ks[i], vs[i]), pos,
                 is_local=cfg.is_local_layer(i),
             )
-            x = self._block_tail(p, x, h)
+            x = self._block_tail(p, x, h, dropless=True)
         hidden = rms_norm(x, self.final_norm)
         return self.logits(hidden), {**state, "pos": pos + 1}
 

@@ -8,23 +8,35 @@ engine, each step's sampled tokens go to the host before the next decode.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models import LM
+from ..models import EncDecLM, LM
+
+Model = Union[LM, EncDecLM]
 
 
-def make_prefill_step(model: LM, max_len: Optional[int] = None):
-    def prefill_step(batch: Dict[str, torch.Tensor]):
-        return model.prefill(batch["tokens"], max_len=max_len)
+def make_prefill_step(model: Model, max_len: Optional[int] = None):
+    """The prefill of a batch {"tokens"}; for the encoder-decoder, of
+    {"tokens", "enc_emb"}: the encoder, then the decoder's prefill."""
+    if model.cfg.family == "encdec":
+
+        def prefill_step(batch: Dict[str, torch.Tensor]):
+            memory = model.encode(batch["enc_emb"])
+            return model.prefill(batch["tokens"], memory, max_len=max_len)
+
+    else:
+
+        def prefill_step(batch: Dict[str, torch.Tensor]):
+            return model.prefill(batch["tokens"], max_len=max_len)
 
     return prefill_step
 
 
-def make_decode_step(model: LM):
+def make_decode_step(model: Model):
     def decode_step(state: Dict[str, Any], tokens: torch.Tensor):
         return model.decode_step(state, tokens)
 
@@ -45,7 +57,7 @@ class Engine:
 
     def __init__(
         self,
-        model: LM,
+        model: Model,
         *,
         max_len: int = 256,
         eos_id: Optional[int] = None,

@@ -38,9 +38,10 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 @torch.no_grad()
 def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
-    """Copies a JAX ``LM.init`` tree (as numpy) into ``model``'s parameters,
-    on the device they already live on.  Raises unless the keys are the
-    same and every shape and type matches."""
+    """Copies a JAX ``LM.init`` or ``EncDecLM.init`` tree (as numpy) into
+    ``model``'s parameters, on the device they already live on.  Raises
+    unless the keys are the same and every shape and type matches (an MoE
+    tree's router is f32 beside bf16 experts, and so is the port's)."""
     flat = flatten(tree)
     params = dict(model.named_parameters())
     missing, extra = sorted(set(params) - set(flat)), sorted(set(flat) - set(params))
@@ -65,14 +66,18 @@ def _kv_from_jax(kv, name: str, device):
     return to_tensor(k).to(device), to_tensor(v).to(device)
 
 
-# The decode state's keys in each family: dense, SSM, hybrid.
-_STATE_KEYS = ({"pos", "kv"}, {"pos", "ssm"}, {"pos", "ssm", "shared_kv"})
+# The decode state's keys in each family: dense and MoE, SSM, hybrid,
+# encoder-decoder.
+_STATE_KEYS = ({"pos", "kv"}, {"pos", "ssm"}, {"pos", "ssm", "shared_kv"},
+               {"pos", "kv", "xk", "xv"})
 
 
 def state_from_jax(tree: Mapping[str, Any], device="cuda") -> Dict[str, Any]:
     """A JAX decode state (as numpy) as the port's decode state on
     ``device``: dense ``{"pos", "kv": (k, v)}``, SSM ``{"pos", "ssm": {"h",
-    "conv"}}``, hybrid the SSM keys plus ``"shared_kv": (k, v)``."""
+    "conv"}}``, hybrid the SSM keys plus ``"shared_kv": (k, v)``,
+    encoder-decoder the dense keys plus the cross-attention K/V ``"xk"``,
+    ``"xv"`` (L, B, S_enc, K, hd)."""
     if set(tree) not in _STATE_KEYS:
         raise KeyError(f"decode state keys {sorted(tree)}, expected one of "
                        f"{[sorted(k) for k in _STATE_KEYS]}")
@@ -81,6 +86,12 @@ def state_from_jax(tree: Mapping[str, Any], device="cuda") -> Dict[str, Any]:
     if "kv" in tree:
         state["kv"] = _kv_from_jax(tree["kv"], "KV", device)
         batch = state["kv"][0].shape[1]
+        if "xk" in tree:
+            state["xk"], state["xv"] = _kv_from_jax((tree["xk"], tree["xv"]), "cross KV",
+                                                    device)
+            if state["xk"].shape[:2] != state["kv"][0].shape[:2]:
+                raise ValueError(f"cross KV {tuple(state['xk'].shape)} does not match the "
+                                 f"self-attention caches {tuple(state['kv'][0].shape)}")
     else:
         ssm = tree["ssm"]
         if set(ssm) != {"h", "conv"}:

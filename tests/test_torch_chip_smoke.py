@@ -1,0 +1,170 @@
+"""The parts of ``chip_smoke.py`` that need no card, on the CPU.
+
+* ``SLICES`` names each served model at its published widths, with a cut
+  of depth only, and launch counts that follow from the depth it serves.
+* ``kernel_rows`` builds the ``kernels`` line from the checks and the
+  launches by shape, and fails where a path ran a kernel at a shape that
+  was not checked, or a shape was checked for a path that never ran it.
+* ``routing_gate`` counts the choices on which two runs route unlike,
+  per layer and as first flips, and gates the first layer's share.
+* ``RoutingLog`` records the routing of an MoE model and pins a second
+  run to it.
+"""
+
+import importlib.util
+from collections import Counter
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models import get_model
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+smoke = load_smoke()
+
+
+@pytest.mark.parametrize("arch", list(smoke.SLICES))
+def test_slices_are_published_widths_cut_in_depth_only(arch):
+    spec = smoke.SLICES[arch]
+    cfg = get_config(arch)
+    assert {k: getattr(cfg, k) for k in spec["widths"]} == spec["widths"]
+    assert set(spec.get("cut", {})) <= {"n_layers"} and set(spec.get("f32_cut", {})) <= {
+        "n_layers"}
+    served = cfg.replace(**spec.get("cut", {}))
+    prefill, per_step, ssd = spec["launches"]
+    if cfg.family == "encdec":  # encoder, self- and cross-attention; decode: self only
+        assert (prefill, per_step) == (served.n_enc_layers + 2 * served.n_layers,
+                                       served.n_layers)
+    elif cfg.family in ("dense", "moe"):
+        assert (prefill, per_step, ssd) == (served.n_layers, served.n_layers, 0)
+    if "f32_cut" in spec:
+        n = spec["f32_cut"]["n_layers"]
+        assert spec["f32_launches"] == (n, n, 0) and n < served.n_layers
+
+
+def test_every_bf16_gate_is_a_slice():
+    assert set(smoke.LOGIT_GATES) <= set(smoke.SLICES)
+    for arch, (atol, rel) in smoke.LOGIT_GATES.items():
+        assert 0 < rel < 0.1 and 0 < atol <= 0.25, arch
+
+
+def checked_row(key, **kw):
+    return dict(key=key, max_abs_err=1e-3, tol=3e-2, ms=0.1, plain_ms=1.0, bound_ms=0.05,
+                bound_by="bytes", library_ms=0.1, shape=str(key[1]), dtype="bfloat16", **kw)
+
+
+ENC = (4, 4096, 4096, 16, 16, 64, False)
+SELF = (4, 512, 512, 16, 16, 64, True)
+CROSS = (4, 512, 4096, 16, 16, 64, False)
+DEC = (4, 545, 16, 16, 64)
+
+
+def seamless(shapes=None):
+    """``checked`` and ``paths`` as phases 2 and 3 give them for one
+    encoder-decoder path."""
+    checked = {("flash_prefill", "seamless"): [checked_row(("flash_prefill", s), causal=s[-1])
+                                               for s in (ENC, SELF, CROSS)],
+               ("flash_decode", "seamless"): [checked_row(("flash_decode", DEC))],
+               ("ssd_intra_chunk", "ssm"): [checked_row(("ssd_intra_chunk", (4, 1024, 80,
+                                                                            64, 128)))]}
+    shapes = Counter(shapes or {("flash_prefill", ENC): 24, ("flash_prefill", SELF): 24,
+                                ("flash_prefill", CROSS): 24, ("flash_decode", DEC): 768})
+    launches = {name: sum(n for (k, _), n in shapes.items() if k == name)
+                for name in ("flash_prefill", "flash_decode", "ssd_intra_chunk")}
+    ssm = Counter({("ssd_intra_chunk", (4, 1024, 80, 64, 128)): 64})
+    paths = {"seamless": (launches, shapes, {}),
+             "ssm": ({"flash_prefill": 0, "flash_decode": 0, "ssd_intra_chunk": 64}, ssm, {})}
+    return checked, paths
+
+
+def test_kernel_rows_one_entry_per_path_and_shape():
+    rows = {r["name"]: r for r in smoke.kernel_rows(*seamless())}
+    prefill = rows["flash_prefill"]
+    entries = [prefill, *prefill["other_paths"]]
+    assert [(e["path"], e["launches"], e["causal"]) for e in entries] == [
+        ("seamless", 24, False), ("seamless", 24, True), ("seamless", 24, False)]
+    assert rows["flash_decode"]["launches"] == 768 and not rows["flash_decode"]["other_paths"]
+    for row in rows.values():  # the contract's keys
+        for key in ("route", "source", "replaces", "launches", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            assert key in row, (row["name"], key)
+
+
+def test_kernel_rows_fail_on_an_unchecked_shape():
+    checked, paths = seamless({("flash_prefill", ENC): 24, ("flash_prefill", SELF): 24,
+                               ("flash_prefill", CROSS): 24, ("flash_decode", DEC): 767,
+                               ("flash_decode", (4, 546, 16, 16, 64)): 1})
+    with pytest.raises(AssertionError, match="ran at"):
+        smoke.kernel_rows(checked, paths)
+
+
+def test_kernel_rows_fail_on_a_shape_that_never_ran():
+    checked, paths = seamless({("flash_prefill", ENC): 48, ("flash_prefill", SELF): 24,
+                               ("flash_decode", DEC): 768})
+    with pytest.raises(AssertionError, match="checked at"):
+        smoke.kernel_rows(checked, paths)
+
+
+def test_kernel_rows_fail_when_counts_disagree():
+    checked, paths = seamless()
+    launches, shapes, rates = paths["seamless"]
+    paths["seamless"] = (dict(launches, flash_decode=769), shapes, rates)
+    with pytest.raises(AssertionError, match="do not sum"):
+        smoke.kernel_rows(checked, paths)
+
+
+def call(chosen, kept=None, E=4):
+    """One RoutingLog call over tokens (B=1, S) from lists of expert sets."""
+    def mask(sets):
+        m = torch.zeros(1, len(sets), E, dtype=torch.bool)
+        for s, experts in enumerate(sets):
+            m[0, s, list(experts)] = True
+        return m
+    return dict(chosen=mask(chosen), kept=mask(kept if kept is not None else chosen),
+                drop_frac=0.0)
+
+
+def test_routing_gate_counts_first_flips(monkeypatch):
+    # two layers, four tokens: token 1 flips at layer 0 and again at layer 1
+    # (not a first flip); token 2 first flips at layer 1; token 3 is dropped
+    # in one run at layer 0 (kept differs), then flips at layer 1.
+    plain = [call([{0}, {1}, {2}, {3}]), call([{0}, {1}, {2}, {3}])]
+    kernel = [call([{0}, {2}, {2}, {3}], kept=[{0}, {2}, {2}, set()]),
+              call([{0}, {3}, {1}, {0}])]
+    monkeypatch.setattr(smoke, "MAX_FLIP_SHARE", 0.25)
+    stats = smoke.routing_gate("t", kernel, plain, n_layers=2)
+    assert stats["flips_per_layer"] == [1, 3] and stats["first_flips_per_layer"] == [1, 1]
+    assert stats["first_layer_flip_share"] == 0.25 and stats["flip_share"] == 0.5
+    monkeypatch.setattr(smoke, "MAX_FLIP_SHARE", 0.2)
+    with pytest.raises(AssertionError, match="routes unlike"):
+        smoke.routing_gate("t", kernel, plain, n_layers=2)
+
+
+@pytest.mark.parametrize("arch", ["grok_1_314b", "llama4_scout_17b_a16e"])
+def test_routing_log_records_and_pins(arch):
+    """A run pinned to another's routing takes its choices, call for call;
+    pinned to its own, it gives the same logits."""
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    model = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator()
+                                     .manual_seed(1))}
+    generated = torch.randint(0, cfg.vocab, (2, 3), generator=torch.Generator().manual_seed(2))
+    logits, calls = smoke.teacher_forced_logits(model, batch, generated, 12)
+    assert len(calls) == cfg.n_layers * 4  # the prefill and three decode steps
+    again, pinned = smoke.teacher_forced_logits(model, batch, generated, 12, pin=calls)
+    torch.testing.assert_close(again, logits, rtol=0, atol=0)
+    other = [dict(c, experts=(c["experts"] + 1) % cfg.n_experts) for c in calls]
+    _, moved = smoke.teacher_forced_logits(model, batch, generated, 12, pin=other)
+    for m, o in zip(moved, other):
+        assert torch.equal(m["experts"], o["experts"])

@@ -84,8 +84,10 @@ class TestKernelsOnCard:
             q, k, v = (torch.randn(s, generator=g, device=cuda).to(td)
                        for s in [(2, Sq, H, hd), (2, Sk, K, hd), (2, Sk, K, hd)])
         n = ops.LAUNCHES["flash_prefill"]
+        key = ("flash_prefill", (2, Sq, Sk, H, K, hd, kw.get("causal", True)))
+        m = ops.LAUNCH_SHAPES[key]
         got = ops.flash_attention(q, k, v, scale=hd ** -0.5, **kw)
-        assert ops.LAUNCHES["flash_prefill"] == n + 1
+        assert ops.LAUNCHES["flash_prefill"] == n + 1 and ops.LAUNCH_SHAPES[key] == m + 1
         want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                        scale=hd ** -0.5, **kw).transpose(1, 2)
         assert_close(got, want, dtype)
@@ -125,8 +127,10 @@ class TestKernelsOnCard:
                       for _ in range(2))
         lens = torch.tensor((lengths * B)[:B], dtype=torch.int32, device=cuda)
         n = ops.LAUNCHES["flash_decode"]
+        key = ("flash_decode", (B, S, H, K, hd))
+        m = ops.LAUNCH_SHAPES[key]
         got = ops.decode_attention(q, kc, vc, lens, scale=hd ** -0.5, **kw)
-        assert ops.LAUNCHES["flash_decode"] == n + 1
+        assert ops.LAUNCHES["flash_decode"] == n + 1 and ops.LAUNCH_SHAPES[key] == m + 1
         want = ref.decode_attention_ref(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lens,
                                         scale=hd ** -0.5, **kw)[:, None]
         assert_close(got, want, dtype)

@@ -100,3 +100,19 @@ def test_launcher_on_cpu(capsys):
                 "--prompt-len", "6", "--gen", "3"])
     out = capsys.readouterr().out
     assert "generated=3 tokens/request" in out and "(CPU," in out
+
+
+def test_serve_batch_example_on_cpu(capsys):
+    """examples/serve_batch_torch.py serves its five families on the CPU."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "serve_batch_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_batch_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    example.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "all engines deterministic under greedy decoding" in out
+    for family in ("dense", "ssm", "hybrid", "encdec", "moe"):
+        assert f"({family:6s})" in out

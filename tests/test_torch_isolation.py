@@ -3,9 +3,11 @@
 * Importing every ``repro_torch`` module and ``chip_smoke.py`` loads neither
   jax nor any module of ``repro`` (checked in a fresh interpreter).
 * The port's copy of each config equals the JAX package's, field for field.
-* Entry points asked for no device try CUDA, and raise where it is absent.
+* Entry points asked for no device try CUDA, and raise where it is absent:
+  the LM, the encoder-decoder, the Engine.
 * ``attn_impl="pallas"`` (the hand-written kernels) raises for CPU tensors,
-  in attention and in the Mamba-2 block.
+  in attention, in the Mamba-2 block, in the encoder-decoder's encoder and
+  cross-attention and in the MoE model's attention.
 """
 
 import dataclasses
@@ -21,7 +23,7 @@ from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
-from repro_torch.models import LM
+from repro_torch.models import LM, EncDecLM, get_model
 from repro_torch.models import layers, mamba2
 from repro_torch.serve import Engine
 
@@ -96,3 +98,33 @@ def test_pallas_impl_raises_on_cpu_ssm():
     mamba2.mamba_apply(cfg, p, x)  # the plain path runs
     with pytest.raises(RuntimeError, match="CUDA"):
         mamba2.mamba_apply(cfg.replace(attn_impl="pallas"), p, x)
+
+
+def test_default_device_is_cuda_encdec():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the check is for one without")
+    cfg = get_smoke_config("seamless_m4t_large_v2").replace(dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EncDecLM(cfg).init(torch.Generator())
+    model = EncDecLM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(model)
+    Engine(model, device="cpu")
+
+
+def test_pallas_impl_raises_on_cpu_encdec_and_moe():
+    cfg = get_smoke_config("seamless_m4t_large_v2").replace(dtype="float32")
+    model = EncDecLM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    emb = torch.randn(1, cfg.enc_len, cfg.d_model)
+    model.encode(emb)  # the plain path runs
+    pallas = EncDecLM(cfg.replace(attn_impl="pallas"))
+    pallas.load_state_dict(model.state_dict(), assign=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pallas.encode(emb)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layers.cross_attn_apply(pallas.cfg, model.dec_blocks.layer(0)["xattn"],
+                                torch.randn(1, 3, cfg.d_model), emb)
+    moe_cfg = get_smoke_config("grok_1_314b").replace(dtype="float32", attn_impl="pallas")
+    moe = get_model(moe_cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe.prefill(torch.zeros(1, 4, dtype=torch.long), max_len=8)

@@ -275,12 +275,12 @@ class TestOpsLayout:
         assert_close(got, want, dtype)
 
     def test_cpu_runs_no_kernel(self):
-        before = dict(ops.LAUNCHES)
+        before, shapes = dict(ops.LAUNCHES), dict(ops.LAUNCH_SHAPES)
         x = torch.randn(1, 8, 2, 16)
         ops.flash_attention(x, x, x, scale=0.25)
         ops.decode_attention(x[:, :1], x, x, torch.tensor([8]), scale=0.25)
         ops.ssd(x, -x[..., 0].abs(), x[:, :, 0], x[:, :, 1], chunk=4)
-        assert ops.LAUNCHES == before
+        assert ops.LAUNCHES == before and dict(ops.LAUNCH_SHAPES) == shapes
 
 
 def ssd_inputs(rng, B, S, nh, hd, N, dtype):

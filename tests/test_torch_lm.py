@@ -4,8 +4,9 @@ On the smoke configs of the dense and VLM families, in f32, ``apply``,
 ``prefill`` (last-position logits and the zero-padded KV caches) and
 ``decode_step`` agree with JAX at 2e-3, the model-level tolerance of
 tests/models/test_smoke.py.  Also: one bf16 case, the weight and state
-bridge, and the families the port does not have yet.  The SSM and hybrid
-families are held by tests/test_torch_ssm.py.
+bridge, and that ``get_model`` builds every config's family.  The SSM and
+hybrid families are held by tests/test_torch_ssm.py, MoE by
+tests/test_torch_moe.py, the encoder-decoder by tests/test_torch_encdec.py.
 """
 
 import jax
@@ -17,7 +18,7 @@ import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import get_model as jax_get_model
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.models import LM, get_model
 from repro_torch.weights import flatten, load_jax_params, state_from_jax, to_tensor
 
@@ -141,8 +142,19 @@ def test_init_shapes_and_scales():
         assert abs(float(p.std()) - want) <= 0.05 * want + 1e-6, name
 
 
-@pytest.mark.parametrize("arch", ["grok_1_314b", "llama4_scout_17b_a16e",
-                                  "seamless_m4t_large_v2"])
-def test_later_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(get_smoke_config(arch))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_get_model_builds_every_family(arch):
+    """Every config's family has its model: the same class as JAX's
+    ``get_model`` gives, with JAX's parameter tree key for key, shape for
+    shape and type for type."""
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    jmodel = jax_get_model(jax_smoke_config(arch))
+    assert type(model).__name__ == type(jmodel).__name__
+    assert model.cfg.family == cfg.family
+    flat = flatten(to_numpy(jmodel.init(jax.random.PRNGKey(0))))
+    params = dict(model.named_parameters())
+    assert sorted(params) == sorted(flat)
+    for name, arr in flat.items():
+        want = to_tensor(arr)
+        assert params[name].shape == want.shape and params[name].dtype == want.dtype, name
