@@ -538,8 +538,9 @@ SLICES = {
 #   twice the ~5.7 sigma (0.12) that 4 x 33 x 256206 such errors reach.
 # - the MoE models (reckoned before their first run): grok 6 layers
 #   sqrt(6) * 2^-8 ~ 1.0%, scout 12 layers ~1.4%.  Bounded at 5% and by
-#   0.25 (logit std 0.02 * sqrt(d_model) ~ 1.4-1.6, as stablelm's).  Held
-#   on a kernel run pinned to the plain run's routing (below).
+#   0.25 (logit std 0.02 * sqrt(d_model) ~ 1.4-1.6, as stablelm's).  Held,
+#   since the first reading, on a kernel run pinned to the plain run's
+#   routing (below).
 LOGIT_GATES = {"stablelm_12b": (0.25, 5e-2), "seamless_m4t_large_v2": (0.25, 7e-2),
                "grok_1_314b": (0.25, 5e-2), "llama4_scout_17b_a16e": (0.25, 5e-2)}
 # MoE routing is discrete.  Reckoned before the first run: a one-step bf16
@@ -547,18 +548,17 @@ LOGIT_GATES = {"stablelm_12b": (0.25, 5e-2), "seamless_m4t_large_v2": (0.25, 7e-
 # router logits of std ~1; that flips a top-k choice whose gap to the next
 # expert is smaller, and such gaps between the k-th and (k+1)-th of 8
 # (grok) or 16 (scout) normal logits have a density of ~2-2.5 at 0: ~1% of
-# the first layer's (token, choice)s.  Held at 4%, about 3x that (a kernel
-# off by a few % would flip a quarter of them).  Deeper layers flip more:
-# a flipped token goes through another expert, its hidden state moves by
-# tens of %, and through attention, which with random weights nearly
-# averages its keys' values, it moves every later row of its sequence by
-# more than a rounding step; at prefill it may also push another token
-# past an expert's capacity.  The first reading (grok: 4.6% of all
-# choices; the kept rows' logits 0.40 max abs) showed that this cascade,
-# which the reckoning had put at a few % of a row, is what sets the
-# end-to-end difference; so the deeper layers' shares are printed, and
-# the logits are held on a kernel run pinned to the plain run's routing,
-# where only the rounding the reckoning counts remains.
+# the (token, layer) choices, held at 4%, about 3x that (a kernel off by a
+# few % would flip a quarter of them).  The first reading (grok on an
+# NVIDIA H100 80GB HBM3, 700.00 W) bore that out at the first layer (0.7%)
+# and not below it (4.6% of all choices; the logits of the tokens whose
+# routing agreed 0.40 max abs): a flipped token goes through another
+# expert, its hidden state moves by tens of %, and attention, which with
+# random weights nearly averages its keys' values, carries that to every
+# later row of its sequence, which flips more choices deeper.  So the gate
+# now reads the first layer's share, where only the kernels' rounding acts;
+# every layer's share is printed; and the logits are held on a kernel run
+# pinned to the plain run's routing, where only rounding remains.
 MAX_FLIP_SHARE = 0.04
 # The SSM models' bf16 gate is set by the model itself.  A bf16 rounding
 # that lands one step apart (the kernel and the plain SSD sum in different
