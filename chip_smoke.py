@@ -34,6 +34,17 @@ Phases, each of which fails the run on any fault:
    then repeats that comparison with the same draws in f32.
 4. Rates: prefill ms, decode ms per step and generated tokens per second,
    and a profile of each model's prefill and decode.
+5. Training (``repro_torch.train``, plain PyTorch with autograd, as the
+   reference trains): (a) each family's smoke config trained in f32 on the
+   card against the same steps on the CPU; (b) stablelm-12b at its
+   published widths, 2 layers, one bf16 step against the f32 step on the
+   same masters; (c) the same at 8 of 40 layers, ten steps and one with
+   ``microbatches=2``: the first loss near its reckoning, every step a
+   descent on its batch, the last loss below the first; ms a step, tokens
+   per second, model FLOP/s against the bf16 peak, peak memory, the
+   optimizer's share, the device's busy share from a profiled step, and the
+   stacked weights read per layer by ``w[i]`` against one ``unbind``;
+   (d) no kernel launches during any of it.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script exits with
 a non-zero code, and prints no result, when no CUDA device is present.
@@ -911,6 +922,365 @@ def profile_slice(arch, model, inputs, max_len, decode_steps=8, top=8):
             log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: training (the port's train/, plain PyTorch with autograd, as the
+# reference trains: no kernel has a backward, so none may launch)
+# ---------------------------------------------------------------------------
+# stablelm-12b at its published widths, cut to 8 of 40 layers.  Reckoning:
+# the embedding and unembedding are 2 x 100352 x 5120 = 1.028 B params and
+# a layer 0.2779 B (attention 65.5 M, MLP 212.3 M), so 8 layers make 3.25 B.
+# At 16 B a param (f32 masters 13.0 GB, f32 m and v 26.0 GB, the f32
+# gradients 13.0 GB) plus 6.5 GB of bf16 gradients and one recomputed
+# layer's activations that is ~60 GB of the card's 80; the whole 12.14 B
+# model would need ~194 GB.
+TRAIN = dict(arch="stablelm_12b", cut=dict(n_layers=8), pair_cut=dict(n_layers=2),
+             seq_len=512, global_batch=4, steps=10,
+             widths=dict(d_model=5120, n_heads=32, n_kv_heads=8, head_dim=160, d_ff=13824,
+                         vocab=100352, dtype="bfloat16"))
+# OptConfig's defaults (f32 m and v, weight decay 0.1, clipping at 1) but
+# lr 3e-6 from the first step (a warm-up of 1).  Adam's first steps move
+# every weight by ~lr, coherently across a 5120-wide matrix: at lr 1e-5 that
+# changes a layer's outputs by ~5%, compounding over 8 layers, and from
+# this init the default lr 3e-4 with a warm-up of 2 to 20 steps sends the
+# loss up, while steps at 1e-5 and above may raise the loss of their own
+# batch.  tools/train_lr_probe.py reads each setting (PERF.md §6).
+TRAIN_OPT = dict(lr=3e-6, warmup_steps=1)
+# The smoke config of each family, trained in f32 on the card and on the CPU
+# from the same masters and batches: (arch, OptConfig overrides).
+# Two steps each; int8 moments one: the second step reads the first's
+# dequantized v, in which an element below 1/254 of its block's largest is
+# 0, and an int8 level that the two sides' rounding sets differently there
+# moves that element's step by many lr (a first reading: 0.236 at lr 1e-2).
+TRAIN_PARITY = [("stablelm_12b", {}, 2), ("gemma2_2b", {}, 2), ("grok_1_314b", {}, 2),
+                ("mamba2_2p7b", {}, 2), ("zamba2_1p2b", {}, 2),
+                ("seamless_m4t_large_v2", {}, 2),
+                ("stablelm_12b", dict(int8_state=True, int8_block=16), 1)]
+PARITY_LR = 1e-2
+# Gate (a), f32 on the card against the port on the CPU (TF32 off on the
+# card), the constants of tests/test_torch_train_step.py, where the port is
+# held against JAX: the two sides sum in other orders (~1e-6 relative a
+# reduction), so the loss, grad norm and metrics within 5e-5 relative; a
+# bf16 gradient may round one bf16 step (2^-7) apart, which moves m by as
+# much and v by twice that, relative, or by one step of the tensor's largest
+# moment where the addends cancel; the first Adam steps are ~lr * sign(g),
+# so every master within 2 lr and at most one in a thousand beyond lr / 16.
+PARITY_METRIC_RTOL = 5e-5
+PARITY_MOMENT_RTOL, PARITY_MOMENT_ATOL_FRAC = 2.0 ** -6, 2.0 ** -7
+PARITY_PARAM_SHARE = 1e-3
+# Gate (b), one bf16 step against the f32 step on the same masters at full
+# width and 2 layers.  bf16 rounds every activation (2^-9 relative RMS a
+# rounding); through 2 layers the hidden states carry ~0.5% RMS of it, the
+# logits (std ~1.43) ~0.007 of noise, random across the 100352 entries and
+# 2048 positions, so the mean loss moves by ~1e-3 (its second-order part,
+# var / 2, by ~3e-5): held at 0.02, below one bf16 step of the loss (12.5 x
+# 2^-8 = 0.049).  The grad norm is dominated by the unembedding's and the
+# embedding's gradients, whose elements carry ~1% of rounding noise that
+# the sum of squares over 1.6 B elements averages out: held at 2% relative.
+BF16_LOSS_ATOL, BF16_GNORM_RTOL = 0.02, 0.02
+# Gate (c): final hidden states of unit RMS (final_norm at zero) and
+# unembedding weights N(0, 0.02^2) over d_model 5120 give logits of std
+# 0.02 * sqrt(5120) = 1.431, so the first loss is ln(100352) + 1.431^2 / 2
+# = 11.516 + 1.024 = 12.540 (lse of V Gaussian logits ~ ln V + sigma^2 / 2;
+# the target's logit averages 0).  Its mean over 2048 targets, which repeat
+# (Zipfian data), moves by ~1.43 / sqrt(100) ~ 0.14: held within 0.5.  Then
+# every loss and grad norm is finite, each step lowers the loss of the batch
+# it took its gradient from (descent), and the last step's loss is below
+# the first's (each step reads another batch, and batches differ).
+FIRST_LOSS_ATOL = 0.5
+
+
+def first_loss_reckoned(cfg) -> float:
+    return math.log(cfg.vocab) + (0.02 * math.sqrt(cfg.d_model)) ** 2 / 2
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 3 x the forward's (the backward twice
+    the forward), the forward 2 per token per weight of a matmul (the
+    layers' attention and MLP weights, the unembedding; not the embedding
+    lookup) plus causal attention, 4 H hd per (query, key) pair of
+    S (S + 1) / 2 a sequence.  Recomputation under remat is not counted."""
+    D, H, K, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    per_layer = D * H * hd + 2 * D * K * hd + H * hd * D + (3 if cfg.mlp_gated else 2) * D * F
+    matmul = cfg.n_layers * per_layer + D * cfg.vocab
+    attention = cfg.n_layers * batch * 4 * H * hd * seq * (seq + 1) // 2
+    return 3.0 * (2 * matmul * batch * seq + attention)
+
+
+def train_batch(cfg, pipe, step, device, rng_seed=0):
+    """The pipeline's batch for ``step`` on ``device``; for the
+    encoder-decoder also stub frame embeddings (B, enc_len, D) in f32."""
+    import numpy as np
+    import torch
+
+    b = {k: torch.from_numpy(v.copy()).to(device) for k, v in pipe.batch_at(step).items()}
+    if cfg.family == "encdec":
+        rng = np.random.default_rng((rng_seed, step))
+        emb = rng.standard_normal((b["tokens"].shape[0], cfg.enc_len, cfg.d_model))
+        b["enc_emb"] = torch.from_numpy(emb.astype(np.float32)).to(device)
+    return b
+
+
+def moved_state(state, cfg, ocfg, device, directory):
+    """``state`` on ``device``, through a checkpoint: saved, then restored
+    into a fresh state there."""
+    import torch
+    from repro_torch.train import checkpoint, init_state
+
+    man = checkpoint.save(directory, int(state.step), state)
+    like = init_state(cfg, ocfg, torch.Generator(device=device).manual_seed(99), device=device)
+    return checkpoint.restore(directory, man, like)
+
+
+def parity_case(arch, overrides, device, steps=2, seed=0):
+    """The smoke config of ``arch`` in f32, trained ``steps`` steps on the
+    CPU and on ``device`` from the same masters (moved by a checkpoint) and
+    batches; raises unless gate (a) holds.  Returns the largest errors."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import OptConfig, init_state, make_train_step
+    from repro_torch.train.data import DataConfig, TokenPipeline
+    from repro_torch.train.optimizer import _dq8
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    ocfg = OptConfig(lr=PARITY_LR, warmup_steps=1, **overrides)
+    cpu = init_state(cfg, ocfg, torch.Generator().manual_seed(seed), device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        dev = moved_state(cpu, cfg, ocfg, device, tmp)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=seed))
+    step = make_train_step(cfg, ocfg)
+    worst = dict(metric_rel=0.0, param_abs=0.0, params_far=0, moment_excess=0.0)
+    for i in range(steps):
+        cpu, want = step(cpu, train_batch(cfg, pipe, i, "cpu"))
+        dev, got = step(dev, train_batch(cfg, pipe, i, device))
+        for k in want:
+            a, b = float(got[k]), float(want[k])
+            if not math.isfinite(a) or abs(a - b) > PARITY_METRIC_RTOL * abs(b) + 1e-6:
+                raise AssertionError(f"train parity {arch} step {i}: {k} {a} vs CPU {b}")
+            worst["metric_rel"] = max(worst["metric_rel"], abs(a - b) / max(abs(b), 1e-30))
+    far = total = 0
+    dev_params = dict(dev.params.named_parameters())
+    for name, p in cpu.params.named_parameters():
+        d = (dev_params[name].detach().cpu() - p.detach()).abs()
+        if d.max().item() > 2 * PARITY_LR:
+            raise AssertionError(f"train parity {arch}: {name} off by {d.max().item():.3e}")
+        worst["param_abs"] = max(worst["param_abs"], d.max().item())
+        far += int((d > PARITY_LR / 16).sum())
+        total += d.numel()
+        for which in ("m", "v"):
+            got, want = getattr(dev.opt, which)[name], getattr(cpu.opt, which)[name]
+            if ocfg.int8_state:
+                atol = 1.01 * want["s"].max().item()
+                got, want = (_dq8(t["q"], t["s"], p.shape).cpu() for t in (got, want))
+            else:
+                got, want = got.cpu(), want
+                atol = PARITY_MOMENT_ATOL_FRAC * want.abs().max().item()
+            excess = ((got - want).abs() - PARITY_MOMENT_RTOL * want.abs()).max().item()
+            if excess > atol:
+                raise AssertionError(f"train parity {arch}: {which}/{name} off by {excess:.3e} "
+                                     f"beyond {PARITY_MOMENT_RTOL} relative (atol {atol:.3e})")
+            worst["moment_excess"] = max(worst["moment_excess"], excess / max(atol, 1e-30))
+    if far > PARITY_PARAM_SHARE * total:
+        raise AssertionError(f"train parity {arch}: {far} of {total} masters beyond lr / 16")
+    worst["params_far"] = far
+    return dict(arch=arch, **overrides, steps=steps, **worst)
+
+
+def bf16_pair(cfg, ocfg, batch, seed=0, device="cuda"):
+    """Gate (b): one step of ``cfg`` (bf16) and the same step of its f32
+    twin on a copy of the same masters."""
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.train import TrainState, init_state, make_train_step, optimizer
+
+    state = init_state(cfg, ocfg, torch.Generator(device=device).manual_seed(seed), device)
+    cfg32 = cfg.replace(dtype="float32")
+    model32 = get_model(cfg32).float().to_empty(device=device)
+    model32.load_state_dict(state.params.state_dict())
+    model32.requires_grad_(True)
+    # (with autograd recording, as in training: no kernel runs)
+    if state.params.hidden_states(batch["tokens"][:1, :8]).dtype != torch.bfloat16:
+        raise AssertionError("the bf16 config's forward on f32 masters is not bf16")
+    state32 = TrainState(model32, optimizer.init(ocfg, dict(model32.named_parameters())),
+                         torch.zeros((), dtype=torch.int32, device=device))
+    _, m32 = make_train_step(cfg32, ocfg)(state32, batch)
+    del state32, model32
+    _, m16 = make_train_step(cfg, ocfg)(state, batch)
+    del state
+    out = dict(loss_bf16=float(m16["loss"]), loss_f32=float(m32["loss"]),
+               grad_norm_bf16=float(m16["grad_norm"]), grad_norm_f32=float(m32["grad_norm"]))
+    out["loss_abs_diff"] = abs(out["loss_bf16"] - out["loss_f32"])
+    out["grad_norm_rel_diff"] = abs(out["grad_norm_bf16"] / out["grad_norm_f32"] - 1)
+    log(f"train: (b) {cfg.n_layers} layers at full width, one bf16 step vs the f32 step on "
+        f"the same masters: {json.dumps(out)} (gates: loss {BF16_LOSS_ATOL}, grad norm "
+        f"{BF16_GNORM_RTOL} relative)")
+    if not (out["loss_abs_diff"] <= BF16_LOSS_ATOL and out["grad_norm_rel_diff"] <= BF16_GNORM_RTOL):
+        raise AssertionError("train: the bf16 step strays from the f32 step")
+    return out
+
+
+def select_layers(self):
+    """Each layer's weights read by ``w[i]``, as before ``_Stacked.layers``:
+    the backward of each read writes a zero-filled gradient of the whole
+    stack.  Only the train phase's before/after measurement uses it."""
+    return [self.layer(i) for i in range(next(self.parameters()).shape[0])]
+
+
+def timed_step(step_fn, state, batch):
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # waits for the step
+    ms = (time.perf_counter() - t0) * 1e3
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        raise AssertionError(f"train: loss {loss} grad norm {gnorm}")
+    return state, dict(loss=loss, grad_norm=gnorm, lr=float(metrics["lr"]), ms=ms,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def profile_train_step(step_fn, state, batch, top=8):
+    """One train step under torch.profiler: wall, the device's busy share,
+    the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    log(f"profile train step: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
+    for e in kernels[:top]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    return state, dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
+
+
+def train_phase(card, spec=TRAIN, device="cuda"):
+    """Gates (a) to (d) and the rates of the 8-layer run; returns the rates."""
+    import statistics
+    from collections import Counter
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train import OptConfig, init_state, make_train_step
+    from repro_torch.train.data import DataConfig, TokenPipeline
+    from repro_torch.train.optimizer import update
+    from repro_torch.train.train_loop import make_grad_fn, make_loss_fn
+
+    launches, shapes = dict(ops.LAUNCHES), Counter(ops.LAUNCH_SHAPES)
+
+    def no_launches(where):  # gate (d)
+        if dict(ops.LAUNCHES) != launches or Counter(ops.LAUNCH_SHAPES) != shapes:
+            raise AssertionError(f"train: kernels launched during {where}: "
+                                 f"{dict(ops.LAUNCHES)} vs {launches}")
+
+    for arch, overrides, n in TRAIN_PARITY:  # gate (a)
+        row = parity_case(arch, overrides, device, steps=n)
+        log(f"train: (a) f32 smoke {arch} on the card vs the port on the CPU:", json.dumps(row))
+    no_launches("the f32 parity steps")
+
+    published = get_config(spec["arch"]).replace(**spec.get("shrink", {}))
+    widths = {k: getattr(published, k) for k in spec["widths"]}
+    if widths != spec["widths"]:
+        raise AssertionError(f"{spec['arch']} is not at its published widths: {widths}")
+    ocfg = OptConfig(**TRAIN_OPT)
+    B, S, n_steps = spec["global_batch"], spec["seq_len"], spec["steps"]
+    pipe = TokenPipeline(DataConfig(vocab=published.vocab, seq_len=S, global_batch=B))
+    batches = [pipe.torch_batch_at(i, device=device) for i in range(n_steps + 1)]
+
+    pair = bf16_pair(published.replace(**spec["pair_cut"]), ocfg, batches[0],
+                     device=device)  # gate (b)
+    no_launches("the bf16 / f32 pair")
+    torch.cuda.empty_cache()
+
+    cfg = published.replace(**spec["cut"])
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    state = init_state(cfg, ocfg, gen, device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    log(f"train: {spec['arch']} at its published widths {json.dumps(widths)}, cut "
+        f"{json.dumps(spec['cut'])}: {n_params / 1e9:.3f} B params, f32 masters and moments "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB, initialized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    step_fn, loss_fn = make_train_step(cfg, ocfg), make_loss_fn(cfg)
+    steps = []
+    for i in range(n_steps + 1):
+        mb = 1 if i < n_steps else 2
+        state, row = timed_step(step_fn if mb == 1 else make_train_step(
+            cfg, ocfg, microbatches=2), state, batches[i])
+        # the same batch's loss after the step, with autograd recording (as
+        # in training: the plain path)
+        row.update(microbatches=mb, loss_after=loss_fn(state.params, batches[i])[0].item())
+        steps.append(row)
+        log(f"train: step {i + 1} [{card}]:", json.dumps(row))
+    no_launches("the 8-layer steps")
+    losses, after = [r["loss"] for r in steps], [r["loss_after"] for r in steps]
+    want = first_loss_reckoned(cfg)  # gate (c)
+    log(f"train: (c) first loss {losses[0]:.4f} (reckoned {want:.4f}, within "
+        f"{FIRST_LOSS_ATOL}); each step's loss on its batch before and after it: "
+        f"{json.dumps([[round(a, 4), round(b, 4)] for a, b in zip(losses, after)])}")
+    if abs(losses[0] - want) > FIRST_LOSS_ATOL or not losses[-1] < losses[0] or not all(
+            math.isfinite(b) and b < a for a, b in zip(losses, after)):
+        raise AssertionError(f"train: losses {losses}, after each step {after}")
+
+    # The optimizer's share: a step's two halves, each synchronised.
+    grad_fn = make_grad_fn(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = grad_fn(state.params, batches[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, opt_state, _ = update(ocfg, dict(state.params.named_parameters()), grads, state.opt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state = state._replace(opt=opt_state, step=state.step + 1)
+    del grads
+    split = dict(grad_ms=(t1 - t0) * 1e3, optimizer_ms=(t2 - t1) * 1e3)
+    split["optimizer_share"] = split["optimizer_ms"] / (split["grad_ms"] + split["optimizer_ms"])
+    state, prof = profile_train_step(step_fn, state, batches[1])
+
+    # Reading the stacked weights by w[i] (before) against one unbind
+    # (after), in turns.
+    layers = {"unbind": lm._Stacked.layers, "select": select_layers}
+    reads = {k: [] for k in layers}
+    try:
+        for name in ("unbind", "select", "select", "unbind"):
+            lm._Stacked.layers = layers[name]
+            state, row = timed_step(step_fn, state, batches[2])
+            reads[name].append(row)
+    finally:
+        lm._Stacked.layers = layers["unbind"]
+    no_launches("the profiled and measured steps")
+    log(f"train: stacked-weight reads, one step each in turns [{card}]:", json.dumps(reads))
+
+    ms = statistics.median(r["ms"] for r in steps[2:n_steps])
+    flops = train_flops(cfg, B, S)
+    rates = dict(arch=spec["arch"], card=card, n_layers=cfg.n_layers, n_params=n_params,
+                 batch=B, seq_len=S, ms_per_step=ms, tok_per_s=B * S / (ms / 1e3),
+                 model_flops_per_step=flops, mfu_bf16=flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
+                 peak_gb=max(r["peak_gb"] for r in steps), card_gb=80, losses=losses,
+                 losses_after=after,
+                 grad_norms=[r["grad_norm"] for r in steps], **split,
+                 busy_share=prof["busy_share"], profiled_wall_ms=prof["wall_ms"],
+                 stacked_reads={k: dict(ms=[r["ms"] for r in v], peak_gb=[r["peak_gb"] for r in v])
+                                for k, v in reads.items()},
+                 bf16_pair=pair)
+    del state
+    torch.cuda.empty_cache()
+    return rates
+
+
 KERNELS = {
     "flash_prefill": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -983,6 +1353,7 @@ def main() -> int:
     checked = {**kernel_phase(), **ssd_phase()}
     paths = {arch: slice_phase(card, arch, spec) for arch, spec in SLICES.items()}
     log(json.dumps({"kernels": kernel_rows(checked, paths)}))
+    train = train_phase(card)
     log(card)
     for arch, (_, _, rates) in paths.items():
         log(f"rates {arch} [{card}]: prefill {rates['prefill_ms']:.2f} ms "
@@ -990,6 +1361,13 @@ def main() -> int:
             f"{rates['decode_ms_per_step']:.2f} ms/step, {rates['tok_per_s']:.1f} generated "
             f"tok/s through Engine.generate")
         log("rates:", json.dumps(rates))
+    log(f"train rates {train['arch']} ({train['n_layers']} layers) [{card}]: "
+        f"{train['ms_per_step']:.2f} ms/step (B={train['batch']}, S={train['seq_len']}), "
+        f"{train['tok_per_s']:.0f} tok/s, {train['model_flops_per_step'] / 1e12:.2f} model TFLOP "
+        f"a step, {train['mfu_bf16']:.1%} of 989 TFLOP/s bf16, peak memory "
+        f"{train['peak_gb']:.1f} of 80 GB, optimizer {train['optimizer_share']:.1%} of a step, "
+        f"device busy {train['busy_share']:.1%} of a profiled step")
+    log("train rates:", json.dumps(train))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,10 @@ every head, the kernels here read the model's layout through strides.
 its path went through the kernels; ``LAUNCH_SHAPES`` counts them by call
 shape, so a path that runs a kernel at several shapes (an encoder, a
 decoder, its cross-attention) shows how often it ran each.
+
+The kernels have no backward (nor have the reference's Pallas kernels): on
+a CUDA tensor each op raises while autograd records, naming the plain path
+to take instead.
 """
 
 from __future__ import annotations
@@ -36,6 +40,17 @@ def reset_launches() -> None:
     LAUNCH_SHAPES.clear()
 
 
+def records_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_autograd(op: str, plain: str, *tensors: Optional[torch.Tensor]) -> None:
+    if records_grad(*tensors):
+        raise RuntimeError(f"{op}: the CUDA kernel has no backward; under autograd take "
+                           f"the plain path ({plain})")
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, K, hd)
@@ -53,6 +68,8 @@ def flash_attention(
             scale=scale, causal=causal, window=window, softcap=softcap,
         )
         return out.transpose(1, 2)
+    _refuse_autograd("flash_attention", "models.layers.attention_naive or attention_chunked",
+                     q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     flash_prefill(q, k, v, out, scale=scale, causal=causal, window=window, softcap=softcap)
     LAUNCHES["flash_prefill"] += 1
@@ -78,6 +95,7 @@ def decode_attention(
             scale=scale, window=window, softcap=softcap,
         )
         return out[:, None]
+    _refuse_autograd("decode_attention", "models.layers.attention_decode", q, k_cache, v_cache)
     out = torch.empty(q.shape[0], q.shape[2], q.shape[3], dtype=q.dtype, device=q.device)
     flash_decode(
         q[:, 0], k_cache, v_cache, lengths.to(torch.int32), out,
@@ -138,6 +156,8 @@ def ssd_intra_chunk(x, a, Bm, Cm, chunk: int):
     (B,nh,nC,Q), f32."""
     B_, S, nh, hd = x.shape
     Q = chunk_len(S, chunk)
+    if x.is_cuda:
+        _refuse_autograd("ssd_intra_chunk", "kernels.ref.ssd_intra_chunk_ref", x, a, Bm, Cm)
     y, st, cum = _intra_chunk(x, a, Bm, Cm, Q)
     nC = S // Q
     return (y.reshape(B_, nC, Q, nh, hd).permute(0, 3, 1, 2, 4), st.permute(0, 2, 1, 4, 3),
@@ -158,6 +178,8 @@ def ssd(
     N = Bm.shape[-1]
     Q = chunk_len(S, chunk)
     nC = S // Q
+    if x.is_cuda:
+        _refuse_autograd("ssd", "models.mamba2.ssd_chunked", x, a, Bm, Cm, h0)
     y_diag, states, cum = _intra_chunk(x, a, Bm, Cm, Q)
     cum = cum.view(B_, nC, Q, nh)
     chunk_decay = torch.exp(cum[:, :, -1])  # (B, nC, nh)

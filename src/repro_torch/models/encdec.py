@@ -36,7 +36,7 @@ from .layers import (
     mlp_init,
     rms_norm,
 )
-from .lm import _attn_shapes, _cast, _fill, _mlp_shapes, _params, _Stacked
+from .lm import _attn_shapes, _cast, _fill, _mlp_shapes, _params, _Stacked, checkpointed
 
 Tensor = torch.Tensor
 
@@ -98,32 +98,45 @@ class EncDecLM(nn.Module):
     # ------------------------------------------------------------------
     # Forward
     # ------------------------------------------------------------------
-    def encode(self, enc_emb: Tensor) -> Tensor:
+    def encode(self, enc_emb: Tensor, *, remat: bool = False) -> Tensor:
         """enc_emb (B, S_enc, D) frame embeddings -> memory (B, S_enc, D):
-        non-causal self-attention blocks, then the encoder's final norm."""
-        cfg = self.cfg
+        non-causal self-attention blocks in enc_emb's type, then the
+        encoder's final norm.  With ``remat`` each layer runs
+        ``checkpointed``."""
         x = enc_emb
-        for i in range(self.enc_blocks.n):
-            p = _cast(self.enc_blocks.layer(i), x.dtype)
-            x = x + attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=False)
-            x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        for p in self.enc_blocks.layers():
+            x = checkpointed(self._enc_layer, x, p) if remat else self._enc_layer(x, p)
         return rms_norm(x, self.enc_norm)
 
-    def decode_seq(self, tokens: Tensor, memory: Tensor) -> Tensor:
-        """Teacher-forced decoder pass; returns the final hidden states."""
+    def _enc_layer(self, x: Tensor, p) -> Tensor:
         cfg = self.cfg
+        p = _cast(p, x.dtype)
+        x = x + attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=False)
+        return x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+
+    def decode_seq(self, tokens: Tensor, memory: Tensor, *, remat: bool = False) -> Tensor:
+        """Teacher-forced decoder pass; returns the final hidden states.
+        The embedding rows are not cast, as in the reference: with f32
+        masters the decoder computes in f32 whatever the config's type."""
         x = self.embed[tokens]
-        for i in range(self.dec_blocks.n):
-            p = _cast(self.dec_blocks.layer(i), x.dtype)
-            x = x + attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=True)
-            x = x + cross_attn_apply(cfg, p["xattn"], rms_norm(x, p["ln_x"]), memory)
-            x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        for p in self.dec_blocks.layers():
+            x = (checkpointed(self._dec_layer, x, p, memory) if remat
+                 else self._dec_layer(x, p, memory))
         return rms_norm(x, self.final_norm)
 
-    def hidden_states(self, batch: Dict[str, Tensor], *, with_aux: bool = False):
+    def _dec_layer(self, x: Tensor, p, memory: Tensor) -> Tensor:
+        cfg = self.cfg
+        p = _cast(p, x.dtype)
+        x = x + attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=True)
+        x = x + cross_attn_apply(cfg, p["xattn"], rms_norm(x, p["ln_x"]), memory)
+        return x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+
+    def hidden_states(self, batch: Dict[str, Tensor], *, with_aux: bool = False,
+                      remat: bool = False):
         """batch {"tokens", "enc_emb"} -> hidden states; with ``with_aux``,
         also the (empty) aux metrics, as ``LM.hidden_states``."""
-        hidden = self.decode_seq(batch["tokens"], self.encode(batch["enc_emb"]))
+        memory = self.encode(batch["enc_emb"], remat=remat)
+        hidden = self.decode_seq(batch["tokens"], memory, remat=remat)
         return (hidden, {}) if with_aux else hidden
 
     def logits(self, hidden: Tensor) -> Tensor:

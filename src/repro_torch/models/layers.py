@@ -6,12 +6,14 @@ kernel path, chosen by ``cfg.attn_impl``:
   * ``naive``   - materialized (B, H, Sq, Sk) logits; tests and references.
   * ``chunked`` - a loop over query chunks; peak memory O(Cq x Sk).
   * ``pallas``  - the hand-written CUDA kernels (the field keeps the JAX
-    package's name); raises for CPU tensors.
-  * ``auto``    - the kernels on CUDA; on the CPU, JAX's rule: chunked when
-    ``Sq > 2 * attn_q_chunk``, else naive.
+    package's name); raises for CPU tensors, and while autograd records
+    (the kernels have no backward).
+  * ``auto``    - the kernels on CUDA; on the CPU, and on CUDA while
+    autograd records, JAX's rule: chunked when ``Sq > 2 * attn_q_chunk``,
+    else naive (JAX's "auto" never picks a kernel).
 
 The decode step follows the same rule between ``attention_decode`` and the
-decode kernel.
+decode kernel; ``use_kernel`` states it once.
 """
 
 from __future__ import annotations
@@ -184,13 +186,24 @@ def attention_decode(
     return out.reshape(B, 1, H, hd)
 
 
-def _kernel_impl(cfg: ModelConfig, x: Tensor) -> bool:
-    """Whether attention runs the CUDA kernels for this config and tensor."""
-    if cfg.attn_impl == "pallas":
-        if not x.is_cuda:
+def use_kernel(impl: str, on_cuda: bool, grad: bool) -> bool:
+    """Whether attention (and the SSD) run the CUDA kernels under
+    ``attn_impl`` ``impl``, on a CUDA tensor or not, with autograd
+    recording or not."""
+    if impl == "pallas":
+        if not on_cuda:
             raise RuntimeError("attn_impl='pallas' runs the CUDA kernels; got a CPU tensor")
+        if grad:
+            raise RuntimeError("attn_impl='pallas': the CUDA kernels have no backward; under "
+                               "autograd use attn_impl='auto', 'chunked' or 'naive' (the "
+                               "plain path)")
         return True
-    return cfg.attn_impl == "auto" and x.is_cuda
+    return impl == "auto" and on_cuda and not grad
+
+
+def _kernel_impl(cfg: ModelConfig, *tensors: Tensor) -> bool:
+    """``use_kernel`` for the op's inputs (the first decides the device)."""
+    return use_kernel(cfg.attn_impl, tensors[0].is_cuda, kops.records_grad(*tensors))
 
 
 def _kernel_window(cfg: ModelConfig, is_local: bool) -> Optional[int]:
@@ -198,7 +211,7 @@ def _kernel_window(cfg: ModelConfig, is_local: bool) -> Optional[int]:
 
 
 def attention(q, k, v, *, cfg: ModelConfig, causal: bool = True, is_local: bool = False) -> Tensor:
-    if _kernel_impl(cfg, q):
+    if _kernel_impl(cfg, q, k, v):
         return kops.flash_attention(
             q, k, v, scale=_qk_scale(cfg), causal=causal,
             window=_kernel_window(cfg, is_local), softcap=cfg.attn_logit_softcap,
@@ -278,7 +291,10 @@ def attn_apply(
 def cross_attn_apply(cfg: ModelConfig, p, x: Tensor, memory: Tensor) -> Tensor:
     """Decoder cross-attention: queries from x, keys and values from
     ``memory`` (B, S_enc, D); no RoPE, no mask.  On CUDA the prefill
-    kernel's non-causal mode with Sq != Sk."""
+    kernel's non-causal mode with Sq != Sk.  A memory narrower than x (a
+    bf16 encoder under an f32 decoder, as the encoder-decoder trains on
+    f32 masters) is widened first, as JAX's einsum promotes it."""
+    memory = memory.to(torch.promote_types(memory.dtype, x.dtype))
     q = _project(x, p["wq"])
     k = _project(memory, p["wk"])
     v = _project(memory, p["wv"])
@@ -304,7 +320,7 @@ def attn_decode_apply(
     rows = torch.arange(B, device=x.device)
     k_cache[rows, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, pos] = v_new[:, 0].to(v_cache.dtype)
-    if _kernel_impl(cfg, q):
+    if _kernel_impl(cfg, q, k_cache, v_cache):
         out = kops.decode_attention(
             q, k_cache, v_cache, pos + 1, scale=_qk_scale(cfg),
             window=_kernel_window(cfg, is_local), softcap=cfg.attn_logit_softcap,

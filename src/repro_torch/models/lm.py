@@ -19,10 +19,11 @@ reference's shapes and scales) materializes it on a device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
 from .config import ModelConfig
@@ -95,6 +96,21 @@ def _layer(m: nn.Module, i: int) -> Dict[str, Any]:
     return p
 
 
+def _layers(m: nn.Module) -> List[Dict[str, Any]]:
+    per = {n: torch.unbind(w) for n, w in m.named_parameters(recurse=False)}
+    per.update((n, _layers(child)) for n, child in m.named_children())
+    return [{n: ws[i] for n, ws in per.items()} for i in range(len(next(iter(per.values()))))]
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` while autograd
+    records: its activations are recomputed in the backward, as under the
+    reference's ``jax.checkpoint``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 class _Stacked(nn.Module):
     """A module of stacked (L, ...) weights."""
 
@@ -102,6 +118,13 @@ class _Stacked(nn.Module):
         """Layer i's weights as the nested dict the layer functions take,
         keyed as the module names its parameters."""
         return _layer(self, i)
+
+    def layers(self) -> List[Dict[str, Any]]:
+        """Every layer's weights, as ``layer(i)`` for each i, from one
+        ``torch.unbind`` of each stack: its backward stacks the layers'
+        gradients once, where reading ``w[i]`` per layer would write a
+        zero-filled gradient of the whole stack for each layer."""
+        return _layers(self)
 
 
 class _MoE(_Stacked):
@@ -252,8 +275,13 @@ class LM(nn.Module):
             h2 = rms_norm(h2, p["ln2_post"])
         return x + h2
 
-    def _embed(self, tokens: Tensor) -> Tensor:
+    def _embed(self, tokens: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
+        """The token rows, cast to ``dtype`` when given (the forward pass
+        casts to the config type; prefill and decode, as the reference's,
+        take the rows in the weights' type)."""
         x = self.embed[tokens]
+        if dtype is not None:
+            x = x.to(dtype)
         if self.cfg.emb_scale_by_sqrt_dim:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
         return x
@@ -261,43 +289,50 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     # Forward: final hidden states
     # ------------------------------------------------------------------
-    def hidden_states(self, tokens: Tensor, *, with_aux: bool = False):
+    def hidden_states(self, tokens: Tensor, *, with_aux: bool = False, remat: bool = False):
         """The final hidden states; with ``with_aux``, also the MoE aux
-        metrics' means over the layers (``{}`` for other families).
+        metrics' means over the layers (``{}`` for other families).  With
+        ``remat`` each layer runs ``checkpointed``, as training calls it.
 
-        As JAX's ``_attn_stack``, every floating block param is cast to the
-        compute type first: in bf16 that rounds the MoE router, which
-        ``prefill`` and ``decode_step`` use in f32."""
+        As JAX's ``hidden_states``, the embedding rows and every floating
+        block param are cast to the config type first (so f32 masters run
+        the forward in bf16 under a bf16 config): in bf16 that rounds the
+        MoE router, which ``prefill`` and ``decode_step`` use in f32, and
+        Mamba's A_log, D and dt_bias."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = self._embed(tokens, torch_dtype(cfg.dtype))
+        layer = self._ssm_layer if self.is_ssm else self._attn_layer
         auxs: list = []
-        if self.is_ssm:
-            x = self._ssm_stack(x)
-        else:
-            for i in range(cfg.n_layers):
-                p = _cast(self.blocks.layer(i), x.dtype)
-                h = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]),
-                               is_local=cfg.is_local_layer(i))
-                x = self._block_tail(p, x, h, auxs=auxs)
-        hidden = rms_norm(x, self.final_norm)
+        for i, p in enumerate(self.blocks.layers()):
+            x, aux = checkpointed(layer, x, p, i) if remat else layer(x, p, i)
+            if aux:
+                auxs.append(aux)
+        hidden = rms_norm(x, self.final_norm.to(x.dtype))
         if not with_aux:
             return hidden
         aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]} if auxs else {}
         return hidden, aux
 
-    def _ssm_stack(self, x: Tensor) -> Tensor:
-        """JAX's ``_ssm_stack``: every floating block param is cast to the
-        compute type first (in bf16 that rounds A_log, D and dt_bias)."""
+    def _attn_layer(self, x: Tensor, p, i: int):
+        """Layer i of an attention stack: (x, its MoE aux metrics or {})."""
+        p = _cast(p, x.dtype)
+        auxs: list = []
+        h = attn_apply(self.cfg, p["attn"], rms_norm(x, p["ln1"]),
+                       is_local=self.cfg.is_local_layer(i))
+        return self._block_tail(p, x, h, auxs=auxs), (auxs[0] if auxs else {})
+
+    def _ssm_layer(self, x: Tensor, p, i: int):
+        """Mamba-2 layer i, and the hybrid's shared block where it follows
+        it: (x, {})."""
         cfg = self.cfg
-        for i in range(cfg.n_layers):
-            p = _cast(self.blocks.layer(i), x.dtype)
-            h, _ = mamba_apply(cfg, p["mamba"], rms_norm(x, p["ln1"]))
-            x = x + h
-            if self._shared_after(i):
-                sp = _cast(self.shared.weights(), x.dtype)
-                h = attn_apply(cfg, sp["attn"], rms_norm(x, sp["ln1"]))
-                x = self._block_tail(sp, x, h)
-        return x
+        p = _cast(p, x.dtype)
+        h, _ = mamba_apply(cfg, p["mamba"], rms_norm(x, p["ln1"]))
+        x = x + h
+        if self._shared_after(i):
+            sp = _cast(self.shared.weights(), x.dtype)
+            h = attn_apply(cfg, sp["attn"], rms_norm(x, sp["ln1"]))
+            x = self._block_tail(sp, x, h)
+        return x, {}
 
     def logits(self, hidden: Tensor) -> Tensor:
         """Einsum in the param dtype, then f32 (and the final softcap)."""

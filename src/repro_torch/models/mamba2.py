@@ -4,11 +4,13 @@ The port of ``repro.models.mamba2``.  Prefill runs the chunked SSD
 algorithm: a quadratic intra-chunk block plus a linear inter-chunk
 recurrence over the f32 (B, heads, head_dim, state) tensor.  Which of two
 paths runs it follows ``cfg.attn_impl``, as attention does
-(``layers._kernel_impl``):
+(``layers.use_kernel``):
 
-  * the kernel (``pallas``, or ``auto`` on a CUDA tensor): ``kernels.ops.ssd``,
-    whose intra-chunk block is the hand-written CUDA kernel;
-  * otherwise ``ssd_chunked`` below, the plain version.
+  * the kernel (``pallas``, or ``auto`` on a CUDA tensor while autograd does
+    not record): ``kernels.ops.ssd``, whose intra-chunk block is the
+    hand-written CUDA kernel;
+  * otherwise ``ssd_chunked`` below, the plain version (the reference's
+    ``mamba_apply`` always calls it).
 
 Decode is the O(1)-per-token recurrent form over that state plus a rolling
 window of the last W-1 conv inputs.
@@ -151,8 +153,9 @@ def mamba_apply(
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, nh)
     A = -torch.exp(p["A_log"])  # (nh,)
     xh = xs.reshape(B, S, nh, hd)
-    ssd = kops.ssd if _kernel_impl(cfg, x) else ssd_chunked
-    y, h = ssd(xh * dt[..., None].to(xh.dtype), dt * A, Bm, Cm, cfg.ssm_chunk, h0)
+    xdt, a = xh * dt[..., None].to(xh.dtype), dt * A
+    ssd = kops.ssd if _kernel_impl(cfg, xdt, a, Bm, Cm) else ssd_chunked
+    y, h = ssd(xdt, a, Bm, Cm, cfg.ssm_chunk, h0)
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])

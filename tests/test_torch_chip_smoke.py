@@ -9,6 +9,10 @@
   per layer and as first flips, and gates the first layer's share.
 * ``RoutingLog`` records the routing of an MoE model and pins a second
   run to it.
+* The train phase: ``TRAIN`` is stablelm-12b at its published widths cut in
+  depth only, its memory reckoning and FLOP count follow from the config,
+  the first-loss reckoning holds for a freshly drawn model, and gate (a)'s
+  comparison runs (the CPU against the CPU) and rejects a step that strays.
 """
 
 import importlib.util
@@ -168,3 +172,59 @@ def test_routing_log_records_and_pins(arch):
     _, moved = smoke.teacher_forced_logits(model, batch, generated, 12, pin=other)
     for m, o in zip(moved, other):
         assert torch.equal(m["experts"], o["experts"])
+
+
+def test_train_spec_is_published_widths_cut_in_depth_only():
+    spec = smoke.TRAIN
+    cfg = get_config(spec["arch"])
+    assert {k: getattr(cfg, k) for k in spec["widths"]} == spec["widths"]
+    assert set(spec["cut"]) == set(spec["pair_cut"]) == {"n_layers"}
+    cut = cfg.replace(**spec["cut"])
+    n = cut.param_count()
+    assert 3.24e9 < n < 3.26e9  # the reckoning beside TRAIN: 1.028 B + 8 x 0.2779 B
+    assert 16 * n / 1e9 < 53  # masters, m, v and f32 gradients, before activations
+    # the FLOP count: 6 per param per token over the matmul weights (all that
+    # param_count counts but the embedding: it leaves the norms out) plus
+    # causal attention
+    B, S = spec["global_batch"], spec["seq_len"]
+    matmul = n - cut.vocab * cut.d_model
+    attention = 3 * cut.n_layers * B * 4 * cut.n_heads * cut.head_dim * S * (S + 1) // 2
+    assert smoke.train_flops(cut, B, S) == 6 * matmul * B * S + attention
+    assert smoke.first_loss_reckoned(cut) == pytest.approx(12.540, abs=1e-3)
+
+
+def test_first_loss_reckoning_on_a_drawn_model():
+    """The reckoning behind gate (c), at a small width: a freshly drawn
+    model's loss on random tokens is ln V + (0.02 sqrt(D))^2 / 2."""
+    from repro_torch.train import make_eval_step
+
+    cfg = get_config("stablelm_12b").replace(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                                             head_dim=64, d_ff=512, vocab=4096,
+                                             dtype="float32")
+    model = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 64), generator=g),
+             "targets": torch.randint(0, cfg.vocab, (4, 64), generator=g)}
+    loss = float(make_eval_step(cfg)(model, batch)["loss"])
+    assert loss == pytest.approx(smoke.first_loss_reckoned(cfg), abs=0.1)
+
+
+def test_parity_case_runs_and_rejects_a_stray_step(monkeypatch):
+    row = smoke.parity_case("stablelm_12b", {}, "cpu", steps=1)
+    assert row["metric_rel"] == 0.0 and row["params_far"] == 0
+    from repro_torch.train import train_loop
+
+    real = train_loop.make_train_step
+
+    def one_side_off(cfg, ocfg, **kw):  # the second state's steps take twice the lr
+        steps = {"n": 0}
+
+        def step(state, batch):
+            steps["n"] += 1
+            o = ocfg if steps["n"] % 2 else ocfg.__class__(**{**ocfg.__dict__, "lr": 2 * ocfg.lr})
+            return real(cfg, o, **kw)(state, batch)
+        return step
+
+    monkeypatch.setattr("repro_torch.train.make_train_step", one_side_off)
+    with pytest.raises(AssertionError, match="lr|off by"):
+        smoke.parity_case("stablelm_12b", {}, "cpu", steps=1)

@@ -226,3 +226,91 @@ def test_unaligned_rows_raise(cuda):
     with pytest.raises(ValueError, match="aligned"):
         ops.ssd_intra_chunk(xbc[..., :128].unflatten(-1, (2, 64)), torch.zeros(1, 64, 2,
                             device=cuda), xbc[..., 128:144], xbc[..., 144:], chunk=16)
+
+
+class TestTrainingOnCard:
+    """The kernels have no backward: under autograd each op raises, the
+    models' "auto" takes the plain path and "pallas" raises; and one f32
+    train step of the smoke config on the card against the same step on
+    the CPU."""
+
+    @pytest.mark.parametrize("op", ["flash_attention", "decode_attention", "ssd_intra_chunk",
+                                    "ssd"])
+    def test_ops_refuse_autograd(self, cuda, op):
+        g = torch.Generator(device=cuda).manual_seed(0)
+        if op in ("flash_attention", "decode_attention"):
+            q = torch.randn(1, 8 if op == "flash_attention" else 1, 4, 64, generator=g,
+                            device=cuda, requires_grad=True)
+            k, v = (torch.randn(1, 8, 2, 64, generator=g, device=cuda) for _ in range(2))
+            if op == "flash_attention":
+                call = lambda: ops.flash_attention(q, k, v, scale=0.125)  # noqa: E731
+            else:
+                lens = torch.tensor([8], dtype=torch.int32, device=cuda)
+                call = lambda: ops.decode_attention(q, k, v, lens, scale=0.125)  # noqa: E731
+        else:
+            x, a, b, c = ssd_inputs(cuda, 1, 64, 2, 64, 16, torch.float32)
+            x.requires_grad_(True)
+            if op == "ssd":
+                call = lambda: ops.ssd(x, a, b, c, 32)  # noqa: E731
+            else:
+                call = lambda: ops.ssd_intra_chunk(x, a, b, c, chunk=32)  # noqa: E731
+        n = dict(ops.LAUNCHES)
+        with pytest.raises(RuntimeError, match="no backward.*plain path"):
+            call()
+        assert dict(ops.LAUNCHES) == n
+        with torch.no_grad():
+            call()  # the same call without autograd launches the kernel
+        assert sum(ops.LAUNCHES.values()) == sum(n.values()) + 1
+
+    @pytest.mark.parametrize("arch", ["stablelm_12b", "mamba2_2p7b", "seamless_m4t_large_v2"])
+    def test_auto_under_autograd_is_plain(self, cuda, arch):
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import get_model
+        from repro_torch.train import OptConfig, init_state, make_train_step
+        from repro_torch.train.data import DataConfig, TokenPipeline
+
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        ocfg = OptConfig(warmup_steps=1)
+        state = init_state(cfg, ocfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2)
+                              ).torch_batch_at(0, device=cuda)
+        if cfg.family == "encdec":
+            batch["enc_emb"] = torch.randn(2, cfg.enc_len, cfg.d_model, device=cuda)
+        n = dict(ops.LAUNCHES)
+        state, metrics = make_train_step(cfg, ocfg)(state, batch)
+        assert dict(ops.LAUNCHES) == n and torch.isfinite(metrics["loss"])
+        pallas = get_model(cfg.replace(attn_impl="pallas"))
+        pallas.load_state_dict(state.params.state_dict(), assign=True)
+        pallas.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            make_train_step(pallas.cfg, ocfg)(state._replace(params=pallas), batch)
+
+    def test_f32_train_step_against_cpu(self, cuda):
+        """Two steps from the same masters and batches: the loss and grad
+        norm within 5e-5 relative, the masters within 2 lr with at most one
+        in a thousand beyond lr / 16 (tests/test_torch_train_step.py gives
+        the reasons)."""
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.train import OptConfig, init_state, make_train_step
+        from repro_torch.train.data import DataConfig, TokenPipeline
+
+        lr = 1e-2
+        cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
+        ocfg = OptConfig(lr=lr, warmup_steps=1)
+        cpu = init_state(cfg, ocfg, torch.Generator().manual_seed(0), "cpu")
+        dev = init_state(cfg, ocfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+        dev.params.load_state_dict(cpu.params.state_dict())
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+        step = make_train_step(cfg, ocfg)
+        for i in range(2):
+            cpu, want = step(cpu, pipe.torch_batch_at(i, device="cpu"))
+            dev, got = step(dev, pipe.torch_batch_at(i, device=cuda))
+            for k in ("loss", "grad_norm", "accuracy"):
+                np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=5e-5,
+                                           atol=1e-6, err_msg=k)
+        far = total = 0
+        for (name, p), q in zip(cpu.params.named_parameters(), dev.params.parameters()):
+            d = (q.detach().cpu() - p.detach()).abs()
+            assert d.max().item() <= 2 * lr, name
+            far, total = far + int((d > lr / 16).sum()), total + d.numel()
+        assert far <= 1e-3 * total

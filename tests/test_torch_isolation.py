@@ -8,6 +8,10 @@
 * ``attn_impl="pallas"`` (the hand-written kernels) raises for CPU tensors,
   in attention, in the Mamba-2 block, in the encoder-decoder's encoder and
   cross-attention and in the MoE model's attention.
+* The kernel rule (``layers.use_kernel``): ``"auto"`` takes the kernels on
+  CUDA only while autograd does not record, JAX's plain rule otherwise;
+  ``"pallas"`` raises under autograd.  The training entry points default to
+  CUDA too.
 """
 
 import dataclasses
@@ -26,6 +30,8 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import LM, EncDecLM, get_model
 from repro_torch.models import layers, mamba2
 from repro_torch.serve import Engine
+from repro_torch.train import OptConfig, init_state
+from repro_torch.train.data import DataConfig, TokenPipeline
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -128,3 +134,46 @@ def test_pallas_impl_raises_on_cpu_encdec_and_moe():
     moe = get_model(moe_cfg).init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         moe.prefill(torch.zeros(1, 4, dtype=torch.long), max_len=8)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas", "naive", "chunked"])
+def test_kernel_rule(impl):
+    """Which path attention and the SSD take, for each device and grad mode:
+    the kernels under "pallas", and under "auto" on CUDA unless autograd
+    records; "pallas" raises on the CPU and under autograd, naming the
+    plain path."""
+    for on_cuda in (False, True):
+        for grad in (False, True):
+            if impl == "pallas" and not on_cuda:
+                with pytest.raises(RuntimeError, match="CPU tensor"):
+                    layers.use_kernel(impl, on_cuda, grad)
+            elif impl == "pallas" and grad:
+                with pytest.raises(RuntimeError, match="no backward.*plain path"):
+                    layers.use_kernel(impl, on_cuda, grad)
+            else:
+                want = impl == "pallas" or (impl == "auto" and on_cuda and not grad)
+                assert layers.use_kernel(impl, on_cuda, grad) is want
+
+
+def test_autograd_takes_the_plain_path_on_cpu():
+    """Under autograd "auto" runs JAX's rule (naive at 8 tokens) and the
+    gradient reaches the layers before attention; "pallas" raises."""
+    model = _tiny_model().requires_grad_(True)
+    tokens = torch.randint(0, model.cfg.vocab, (1, 8))
+    model.hidden_states(tokens, remat=True).float().pow(2).mean().backward()
+    assert model.blocks.attn["wq"].grad.abs().sum() > 0
+    pallas = LM(model.cfg.replace(attn_impl="pallas"))
+    pallas.load_state_dict(model.state_dict(), assign=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pallas.hidden_states(tokens, remat=True)
+
+
+def test_train_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the check is for one without")
+    cfg = get_smoke_config("stablelm_12b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(cfg, OptConfig(), torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TokenPipeline(DataConfig(vocab=16, seq_len=4, global_batch=1)).torch_batch_at(0)
+    init_state(cfg, OptConfig(), torch.Generator(), device="cpu")  # asking for the CPU works
