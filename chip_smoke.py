@@ -42,8 +42,7 @@ Phases, each of which fails the run on any fault:
    ``microbatches=2``: the first loss near its reckoning, every step a
    descent on its batch, the last loss below the first; ms a step, tokens
    per second, model FLOP/s against the bf16 peak, peak memory, the
-   optimizer's share, the device's busy share from a profiled step, and the
-   stacked weights read per layer by ``w[i]`` against one ``unbind``;
+   optimizer's share and the device's busy share from a profiled step;
    (d) no kernel launches during any of it.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script exits with
@@ -957,16 +956,27 @@ TRAIN_PARITY = [("stablelm_12b", {}, 2), ("gemma2_2b", {}, 2), ("grok_1_314b", {
                 ("stablelm_12b", dict(int8_state=True, int8_block=16), 1)]
 PARITY_LR = 1e-2
 # Gate (a), f32 on the card against the port on the CPU (TF32 off on the
-# card), the constants of tests/test_torch_train_step.py, where the port is
-# held against JAX: the two sides sum in other orders (~1e-6 relative a
-# reduction), so the loss, grad norm and metrics within 5e-5 relative; a
-# bf16 gradient may round one bf16 step (2^-7) apart, which moves m by as
-# much and v by twice that, relative, or by one step of the tensor's largest
-# moment where the addends cancel; the first Adam steps are ~lr * sign(g),
-# so every master within 2 lr and at most one in a thousand beyond lr / 16.
+# card).  tests/test_torch_train_step.py holds the port against JAX on the
+# CPU by the same constants.  Both sides are f32 and sum in other orders:
+# ~1e-6 relative a reduction, carried through a few layers and a step (the
+# CPU readings against JAX: at most 6e-6), so the loss, grad norm and
+# metrics within 5e-5 relative.
 PARITY_METRIC_RTOL = 5e-5
+# The first Adam steps are close to lr * sign(g): an element whose gradient
+# is within a few eps of zero, or whose sign the two sides' sums set
+# differently, moves by up to lr the other way.  So every master is held
+# within 2 lr, and at most one element in a thousand may be off by more
+# than lr / 16 (f32 gradients ~1e-6 apart leave few such elements; a wrong
+# update formula moves them all).
+PARITY_PARAM_ATOL, PARITY_PARAM_SHARE, PARITY_PARAM_FAR = 2 * PARITY_LR, 1e-3, PARITY_LR / 16
+# The moments are sums of (1 - b1) * g and (1 - b2) * g^2 from the bf16
+# gradients: one bf16 step of a gradient (2^-7) moves m by as much and v
+# by twice that, relative; where the addends (two microbatches' gradients,
+# or m and the next step's gradient) cancel, by one bf16 step of the
+# addends, which the tensor's largest moment bounds (the readings: at most
+# 1.3e-3 of it).  int8 moments are held as dequantized, within one
+# quantization step (the block's scale) more.
 PARITY_MOMENT_RTOL, PARITY_MOMENT_ATOL_FRAC = 2.0 ** -6, 2.0 ** -7
-PARITY_PARAM_SHARE = 1e-3
 # Gate (b), one bf16 step against the f32 step on the same masters at full
 # width and 2 layers.  bf16 rounds every activation (2^-9 relative RMS a
 # rounding); through 2 layers the hidden states carry ~0.5% RMS of it, the
@@ -1063,10 +1073,10 @@ def parity_case(arch, overrides, device, steps=2, seed=0):
     dev_params = dict(dev.params.named_parameters())
     for name, p in cpu.params.named_parameters():
         d = (dev_params[name].detach().cpu() - p.detach()).abs()
-        if d.max().item() > 2 * PARITY_LR:
+        if d.max().item() > PARITY_PARAM_ATOL:
             raise AssertionError(f"train parity {arch}: {name} off by {d.max().item():.3e}")
         worst["param_abs"] = max(worst["param_abs"], d.max().item())
-        far += int((d > PARITY_LR / 16).sum())
+        far += int((d > PARITY_PARAM_FAR).sum())
         total += d.numel()
         for which in ("m", "v"):
             got, want = getattr(dev.opt, which)[name], getattr(cpu.opt, which)[name]
@@ -1120,13 +1130,6 @@ def bf16_pair(cfg, ocfg, batch, seed=0, device="cuda"):
     return out
 
 
-def select_layers(self):
-    """Each layer's weights read by ``w[i]``, as before ``_Stacked.layers``:
-    the backward of each read writes a zero-filled gradient of the whole
-    stack.  Only the train phase's before/after measurement uses it."""
-    return [self.layer(i) for i in range(next(self.parameters()).shape[0])]
-
-
 def timed_step(step_fn, state, batch):
     import torch
 
@@ -1171,7 +1174,6 @@ def train_phase(card, spec=TRAIN, device="cuda"):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import lm
     from repro_torch.train import OptConfig, init_state, make_train_step
     from repro_torch.train.data import DataConfig, TokenPipeline
     from repro_torch.train.optimizer import update
@@ -1249,20 +1251,7 @@ def train_phase(card, spec=TRAIN, device="cuda"):
     split = dict(grad_ms=(t1 - t0) * 1e3, optimizer_ms=(t2 - t1) * 1e3)
     split["optimizer_share"] = split["optimizer_ms"] / (split["grad_ms"] + split["optimizer_ms"])
     state, prof = profile_train_step(step_fn, state, batches[1])
-
-    # Reading the stacked weights by w[i] (before) against one unbind
-    # (after), in turns.
-    layers = {"unbind": lm._Stacked.layers, "select": select_layers}
-    reads = {k: [] for k in layers}
-    try:
-        for name in ("unbind", "select", "select", "unbind"):
-            lm._Stacked.layers = layers[name]
-            state, row = timed_step(step_fn, state, batches[2])
-            reads[name].append(row)
-    finally:
-        lm._Stacked.layers = layers["unbind"]
     no_launches("the profiled and measured steps")
-    log(f"train: stacked-weight reads, one step each in turns [{card}]:", json.dumps(reads))
 
     ms = statistics.median(r["ms"] for r in steps[2:n_steps])
     flops = train_flops(cfg, B, S)
@@ -1273,8 +1262,6 @@ def train_phase(card, spec=TRAIN, device="cuda"):
                  losses_after=after,
                  grad_norms=[r["grad_norm"] for r in steps], **split,
                  busy_share=prof["busy_share"], profiled_wall_ms=prof["wall_ms"],
-                 stacked_reads={k: dict(ms=[r["ms"] for r in v], peak_gb=[r["peak_gb"] for r in v])
-                                for k, v in reads.items()},
                  bf16_pair=pair)
     del state
     torch.cuda.empty_cache()

@@ -159,8 +159,7 @@ class EncDecLM(nn.Module):
         state = self.decode_init(B, max_len or S, memory)
         ks, vs = state["kv"]
         x = self.embed[tokens]
-        for i in range(self.dec_blocks.n):
-            p = self.dec_blocks.layer(i)
+        for i, p in enumerate(self.dec_blocks.layers()):
             h, (k, v) = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=True,
                                    return_kv=True)
             ks[i, :, :S] = k
@@ -211,8 +210,7 @@ class EncDecLM(nn.Module):
         pos = state["pos"]
         ks, vs = state["kv"]
         x = self.embed[tokens]
-        for i in range(self.dec_blocks.n):
-            p = self.dec_blocks.layer(i)
+        for i, p in enumerate(self.dec_blocks.layers()):
             h, _ = attn_decode_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), (ks[i], vs[i]), pos)
             x = x + h
             x = x + self._cross_decode(p["xattn"], rms_norm(x, p["ln_x"]),

@@ -89,13 +89,6 @@ def _fill(stacked: nn.ParameterDict, i: int, fresh: Dict[str, Tensor]) -> None:
         stacked[name][i].copy_(w)
 
 
-def _layer(m: nn.Module, i: int) -> Dict[str, Any]:
-    p: Dict[str, Any] = {n: w[i] for n, w in m.named_parameters(recurse=False)}
-    for n, child in m.named_children():
-        p[n] = _layer(child, i)
-    return p
-
-
 def _layers(m: nn.Module) -> List[Dict[str, Any]]:
     per = {n: torch.unbind(w) for n, w in m.named_parameters(recurse=False)}
     per.update((n, _layers(child)) for n, child in m.named_children())
@@ -114,13 +107,9 @@ def checkpointed(fn, *args):
 class _Stacked(nn.Module):
     """A module of stacked (L, ...) weights."""
 
-    def layer(self, i: int) -> Dict[str, Any]:
-        """Layer i's weights as the nested dict the layer functions take,
-        keyed as the module names its parameters."""
-        return _layer(self, i)
-
     def layers(self) -> List[Dict[str, Any]]:
-        """Every layer's weights, as ``layer(i)`` for each i, from one
+        """Every layer's weights as the nested dict the layer functions
+        take, keyed as the module names its parameters, from one
         ``torch.unbind`` of each stack: its backward stacks the layers'
         gradients once, where reading ``w[i]`` per layer would write a
         zero-filled gradient of the whole stack for each layer."""
@@ -237,13 +226,14 @@ class LM(nn.Module):
             self.unembed.copy_(
                 torch.randn(self.unembed.shape, generator=generator, device=dev) * 0.02
             )
+        moe = self.blocks.moe.layers() if cfg.family == "moe" else None
         for i in range(cfg.n_layers):
             if self.is_ssm:
                 _fill(self.blocks.mamba, i, mamba_init(cfg, generator, dt, dev))
             else:
                 _fill(self.blocks.attn, i, attn_init(cfg, generator, dt, dev))
                 if cfg.family == "moe":
-                    moe_init(cfg, generator, dt, dev, out=self.blocks.moe.layer(i))
+                    moe_init(cfg, generator, dt, dev, out=moe[i])
                 else:
                     _fill(self.blocks.mlp, i, mlp_init(cfg, generator, dt, dev))
         if cfg.family == "hybrid":
@@ -358,8 +348,7 @@ class LM(nn.Module):
             return self.logits(rms_norm(x[:, -1:], self.final_norm)), state
         ks, vs = state["kv"]
         x = self._embed(tokens)
-        for i in range(cfg.n_layers):
-            p = self.blocks.layer(i)
+        for i, p in enumerate(self.blocks.layers()):
             h, (k, v) = attn_apply(
                 cfg, p["attn"], rms_norm(x, p["ln1"]), is_local=cfg.is_local_layer(i),
                 return_kv=True,
@@ -381,8 +370,7 @@ class LM(nn.Module):
         check_prompt_len(cfg, S)
         hs, convs = state["ssm"]["h"], state["ssm"]["conv"]
         inv = 0
-        for i in range(cfg.n_layers):
-            p = self.blocks.layer(i)
+        for i, p in enumerate(self.blocks.layers()):
             h, hstate, tail = mamba_apply(cfg, p["mamba"], rms_norm(x, p["ln1"]),
                                           return_conv_tail=True)
             x = x + h
@@ -437,8 +425,7 @@ class LM(nn.Module):
             x = self._ssm_decode(state, x, pos)
             return self.logits(rms_norm(x, self.final_norm)), {**state, "pos": pos + 1}
         ks, vs = state["kv"]
-        for i in range(cfg.n_layers):
-            p = self.blocks.layer(i)
+        for i, p in enumerate(self.blocks.layers()):
             h, _ = attn_decode_apply(
                 cfg, p["attn"], rms_norm(x, p["ln1"]), (ks[i], vs[i]), pos,
                 is_local=cfg.is_local_layer(i),
@@ -454,8 +441,7 @@ class LM(nn.Module):
         hs, convs = state["ssm"]["h"], state["ssm"]["conv"]
         shared_kv = state.get("shared_kv")
         inv = 0
-        for i in range(cfg.n_layers):
-            p = self.blocks.layer(i)
+        for i, p in enumerate(self.blocks.layers()):
             h, new = mamba_decode_step(cfg, p["mamba"], rms_norm(x, p["ln1"]),
                                        {"h": hs[i], "conv": convs[i]})
             hs[i] = new["h"]

@@ -286,31 +286,12 @@ class TestTrainingOnCard:
             make_train_step(pallas.cfg, ocfg)(state._replace(params=pallas), batch)
 
     def test_f32_train_step_against_cpu(self, cuda):
-        """Two steps from the same masters and batches: the loss and grad
-        norm within 5e-5 relative, the masters within 2 lr with at most one
-        in a thousand beyond lr / 16 (tests/test_torch_train_step.py gives
-        the reasons)."""
-        from repro_torch.configs import get_smoke_config
-        from repro_torch.train import OptConfig, init_state, make_train_step
-        from repro_torch.train.data import DataConfig, TokenPipeline
+        """Two steps of the dense smoke config from the same masters and
+        batches, held by chip_smoke.py's gate (a): the loss, grad norm and
+        metrics within 5e-5 relative, the masters within 2 lr with at most
+        one in a thousand beyond lr / 16, the moments within a bf16 step
+        (the reasons are beside its constants)."""
+        from test_torch_chip_smoke import smoke
 
-        lr = 1e-2
-        cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
-        ocfg = OptConfig(lr=lr, warmup_steps=1)
-        cpu = init_state(cfg, ocfg, torch.Generator().manual_seed(0), "cpu")
-        dev = init_state(cfg, ocfg, torch.Generator(device=cuda).manual_seed(1), cuda)
-        dev.params.load_state_dict(cpu.params.state_dict())
-        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
-        step = make_train_step(cfg, ocfg)
-        for i in range(2):
-            cpu, want = step(cpu, pipe.torch_batch_at(i, device="cpu"))
-            dev, got = step(dev, pipe.torch_batch_at(i, device=cuda))
-            for k in ("loss", "grad_norm", "accuracy"):
-                np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=5e-5,
-                                           atol=1e-6, err_msg=k)
-        far = total = 0
-        for (name, p), q in zip(cpu.params.named_parameters(), dev.params.parameters()):
-            d = (q.detach().cpu() - p.detach()).abs()
-            assert d.max().item() <= 2 * lr, name
-            far, total = far + int((d > lr / 16).sum()), total + d.numel()
-        assert far <= 1e-3 * total
+        row = smoke.parity_case("stablelm_12b", {}, cuda)  # raises unless gate (a) holds
+        assert row["steps"] == 2 and row["param_abs"] <= smoke.PARITY_PARAM_ATOL

@@ -93,7 +93,7 @@ def test_cross_attn_apply():
     memory = rng.standard_normal((B, 23, cfg.d_model)).astype(np.float32)
     jp = jax.tree.map(lambda a: a[0], jparams["dec_blocks"]["xattn"])
     want = jlayers.cross_attn_apply(jmodel.cfg, jp, jnp.asarray(x), jnp.asarray(memory))
-    got = tlayers.cross_attn_apply(cfg, model.dec_blocks.layer(0)["xattn"],
+    got = tlayers.cross_attn_apply(cfg, model.dec_blocks.layers()[0]["xattn"],
                                    torch.from_numpy(x), torch.from_numpy(memory))
     close(got, want)
 

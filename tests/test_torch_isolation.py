@@ -86,7 +86,7 @@ def test_default_device_is_cuda():
 def test_pallas_impl_raises_on_cpu():
     model = _tiny_model()
     cfg = model.cfg.replace(attn_impl="pallas")
-    p = model.blocks.layer(0)["attn"]
+    p = model.blocks.layers()[0]["attn"]
     x = torch.randn(1, 4, cfg.d_model)
     with pytest.raises(RuntimeError, match="CUDA"):
         layers.attn_apply(cfg, p, x)
@@ -99,7 +99,7 @@ def test_pallas_impl_raises_on_cpu():
 def test_pallas_impl_raises_on_cpu_ssm():
     cfg = get_smoke_config("mamba2_2p7b").replace(dtype="float32")
     model = LM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
-    p = model.blocks.layer(0)["mamba"]
+    p = model.blocks.layers()[0]["mamba"]
     x = torch.randn(1, 32, cfg.d_model)
     mamba2.mamba_apply(cfg, p, x)  # the plain path runs
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -128,7 +128,7 @@ def test_pallas_impl_raises_on_cpu_encdec_and_moe():
     with pytest.raises(RuntimeError, match="CUDA"):
         pallas.encode(emb)
     with pytest.raises(RuntimeError, match="CUDA"):
-        layers.cross_attn_apply(pallas.cfg, model.dec_blocks.layer(0)["xattn"],
+        layers.cross_attn_apply(pallas.cfg, model.dec_blocks.layers()[0]["xattn"],
                                 torch.randn(1, 3, cfg.d_model), emb)
     moe_cfg = get_smoke_config("grok_1_314b").replace(dtype="float32", attn_impl="pallas")
     moe = get_model(moe_cfg).init(torch.Generator().manual_seed(0), device="cpu")

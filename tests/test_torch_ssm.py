@@ -64,7 +64,7 @@ def bridged(arch, dtype="float32", seed=0):
 def layer0(jparams, model):
     """Layer 0's Mamba params: (JAX tree, the port's dict)."""
     jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["mamba"])
-    return jp, model.blocks.layer(0)["mamba"]
+    return jp, model.blocks.layers()[0]["mamba"]
 
 
 def rand(rng, shape, scale=1.0):

@@ -35,34 +35,22 @@ from repro_torch.train.data import DataConfig, TokenPipeline
 from repro_torch.train.optimizer import _dq8
 from repro_torch.train.train_loop import make_grad_fn
 from repro_torch.weights import flatten, train_state_to_jax
+from test_torch_chip_smoke import smoke
 
 FAMILIES = {"dense": "stablelm_12b", "gemma2": "gemma2_2b", "moe": "grok_1_314b",
             "ssm": "mamba2_2p7b", "hybrid": "zamba2_1p2b", "encdec": "seamless_m4t_large_v2"}
 B, S = 4, 32  # two SSM chunks of 16; gemma2's window of 8 cuts; two MoE groups of 64
-LR = 1e-2
-# f32 on both sides, summed in other orders: ~1e-6 relative per reduction,
-# carried through a few layers and a step (the readings: at most 6e-6).
-METRIC_RTOL = 5e-5
+# The tolerances of chip_smoke.py's gate (a), which holds the port on the
+# card against the port on the CPU; the reasons are beside them there.
+LR, METRIC_RTOL = smoke.PARITY_LR, smoke.PARITY_METRIC_RTOL
+PARAM_ATOL, PARAM_SHARE, PARAM_FAR = (smoke.PARITY_PARAM_ATOL, smoke.PARITY_PARAM_SHARE,
+                                      smoke.PARITY_PARAM_FAR)
+MOMENT_RTOL, MOMENT_ATOL_FRAC = smoke.PARITY_MOMENT_RTOL, smoke.PARITY_MOMENT_ATOL_FRAC
 # A bf16 gradient is the f32 one rounded; two f32 values ~1e-6 apart round
 # to the same bf16 value or to neighbours, at most one bf16 step (2^-7
 # relative) apart; near zero, the f32 difference itself (~1e-6 of the
 # tensor's largest element).
 GRAD_RTOL, GRAD_ATOL_FRAC = 2.0 ** -7, 1e-6
-# The first Adam steps are close to lr * sign(g): an element whose gradient
-# is within a few eps of zero, or whose sign the two sides' sums set
-# differently, moves by up to lr the other way.  So every master is held
-# within 2 lr, and at most one element in a thousand may be off by more
-# than lr / 16 (f32 gradients ~1e-6 apart leave few such elements; a wrong
-# update formula moves them all).
-PARAM_ATOL, PARAM_SHARE, PARAM_FAR = 2 * LR, 1e-3, LR / 16
-# The moments are sums of (1 - b1) * g and (1 - b2) * g^2 from the bf16
-# gradients: one bf16 step of a gradient (2^-7) moves m by as much and v
-# by twice that, relative; where the addends (two microbatches' gradients,
-# or m and the next step's gradient) cancel, by one bf16 step of the
-# addends, which the tensor's largest moment bounds (the readings: at most
-# 1.3e-3 of it).  int8 moments are held as dequantized, within one
-# quantization step (the block's scale) more.
-MOMENT_RTOL, MOMENT_ATOL_FRAC = 2.0 ** -6, 2.0 ** -7
 # bf16: both sides round at the same places, but their matmuls sum in
 # other orders, so a rounding may land one bf16 step (2^-8 relative) apart,
 # a few of which reach the loss (~5.5) and the grad norm.
