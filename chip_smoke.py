@@ -44,6 +44,16 @@ Phases, each of which fails the run on any fault:
    per second, model FLOP/s against the bf16 peak, peak memory, the
    optimizer's share and the device's busy share from a profiled step;
    (d) no kernel launches during any of it.
+6. Elasticity (``repro_torch.coord``): the 8-layer stablelm of phase 5
+   trained by ``ElasticTrainer`` under the Matchmaker-MultiPaxos control
+   plane through a scale-up, a scale-down, a failover and a restore of the
+   consensus-committed checkpoint; gates: the ledger's safety, no stall,
+   the epochs and pod sets of the schedule, each activation under 5
+   simulated ms, one durable checkpoint at step 10 restored bit for bit
+   (per-tensor f64 sums), the replayed step's loss, falling losses, no
+   kernel launch; readings: ms/step by epoch and right after each change,
+   the control plane's host ms per step, each change's wall ms, the
+   checkpoint's GB, seconds and GB/s.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script exits with
 a non-zero code, and prints no result, when no CUDA device is present.
@@ -1268,6 +1278,318 @@ def train_phase(card, spec=TRAIN, device="cuda"):
     return rates
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the elastic trainer (the port's coord/: Matchmaker MultiPaxos on
+# the simulator as the control plane of the training loop of phase 5)
+# ---------------------------------------------------------------------------
+# stablelm-12b as phase 5 trains it (published widths, TRAIN["cut"], batch 4
+# x 512, TRAIN_OPT), through the schedule of benchmarks/bench_elastic.py:
+# pods pod0..pod2; 6 steps, scale to 4 pods; 4 steps, back to 3; 4 steps,
+# pod2 fails and pod4 replaces it; 4 steps, restore the committed
+# checkpoint; 2 steps.  A StepRecord every 5 steps and a checkpoint every
+# 10: exactly one, at step 10, which the restore (after step 18) goes back
+# to.  Each entry: (steps to run, then the operation and its arguments).
+ELASTIC = dict(pods=("pod0", "pod1", "pod2"), commit_every=5, checkpoint_every=10,
+               schedule=((6, "scale_to", ("pod0", "pod1", "pod2", "pod3")),
+                         (4, "scale_to", ("pod0", "pod1", "pod2")),
+                         (4, "fail_and_replace", ("pod2", "pod4")),
+                         (4, "restore_latest", ()),
+                         (2, None, ())))
+# tests/coord/test_elastic.py's bound on a membership change's activation,
+# in simulated ms (the JAX controller through this schedule reads 1.0 each).
+ACTIVATION_MS_MAX = 5.0
+# A checkpoint holds the f32 masters, m and v: 12 B a param, 3.2512 B params
+# at 8 layers (TRAIN's reckoning) = 39.01 GB on disk.  checkpoint.save keeps
+# every leaf on the host while np.savez writes the shard, then reads the
+# file back whole to hash it; restore reads it whole to hash it, then
+# np.load's it: two copies on the host either way, 78.0 GB.  The H100
+# machine has 105.9 GB of memory (MemTotal) and 75 GB free on its root file
+# system, 9p, which keeps no page cache in the guest (`df`, `free` and
+# /proc/meminfo read there): 78.0 GB + the process's own few GB fit, so the
+# checkpoint runs at the 8-layer cut.  The
+# phase checks disk and memory before any work and raises when either is
+# short: the shard plus 5%, and two copies plus HOST_HEADROOM_BYTES.
+CKPT_BYTES_PER_PARAM, CKPT_HOST_COPIES, HOST_HEADROOM_BYTES = 12, 2, 8e9
+# The first step after the restore reruns step 11 on the same masters (the
+# sums gate: bit for bit) and the same batch (a function of the step): its
+# forward has no atomics (GEMMs, elementwise passes, reductions in a fixed
+# order), so the loss comes back bit-equal; 1e-6 relative is ~8 f32 steps
+# of a loss of 12, room for a GEMM algorithm chosen anew, far below a step's
+# change of the loss (~0.1).  The second replayed step follows an update
+# whose gradients sum by atomics (the embedding's backward): printed only.
+REPLAY_LOSS_RTOL = 1e-6
+
+
+def checkpoint_bytes(cfg) -> int:
+    """A TrainState checkpoint's size reckoned from the config: f32 masters,
+    m and v (``param_count`` leaves out the norms, ~0.01% at full width)."""
+    return CKPT_BYTES_PER_PARAM * cfg.param_count()
+
+
+def mem_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def elastic_preflight(nbytes: int, directory: str) -> dict:
+    """Raises unless the disk under ``directory`` takes one checkpoint of
+    ``nbytes`` and the host's memory two copies of it."""
+    import shutil
+
+    disk, mem = shutil.disk_usage(directory).free, mem_available_bytes()
+    need_disk, need_mem = 1.05 * nbytes, CKPT_HOST_COPIES * nbytes + HOST_HEADROOM_BYTES
+    row = dict(checkpoint_gb=nbytes / 1e9, disk_free_gb=disk / 1e9, need_disk_gb=need_disk / 1e9,
+               mem_available_gb=mem / 1e9, need_mem_gb=need_mem / 1e9)
+    if disk < need_disk or mem < need_mem:
+        raise AssertionError(f"elastic: no room for the checkpoint round-trip: {json.dumps(row)}")
+    return row
+
+
+def elastic_expected(spec=ELASTIC):
+    """From the schedule: the pod set of each epoch, the steps run before the
+    restore, the checkpoint steps among them and the step restored to."""
+    pods, epochs, step = list(spec["pods"]), [tuple(spec["pods"])], 0
+    for n, op, args in spec["schedule"]:
+        step += n
+        if op == "scale_to":
+            pods = list(args)
+        elif op == "fail_and_replace":
+            pods = [args[1] if p == args[0] else p for p in pods]
+        elif op == "restore_latest":
+            before = step
+            continue
+        else:
+            continue
+        epochs.append(tuple(pods))
+    saved = [s for s in range(1, before + 1) if s % spec["checkpoint_every"] == 0]
+    return dict(epochs=epochs, steps_before_restore=before, checkpoints=saved,
+                restored_to=saved[-1])
+
+
+class HostClock:
+    """Host ms in the wrapped methods of one object, outermost calls only
+    (``commit`` runs ``sim.run_for`` within it)."""
+
+    def __init__(self):
+        self.ms, self._depth = 0.0, 0
+
+    def wrap(self, obj, name):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kw):
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self._depth -= 1
+                if self._depth == 0:
+                    self.ms += (time.perf_counter() - t0) * 1e3
+
+        setattr(obj, name, timed)
+
+
+def state_sums(state):
+    """Per tensor of a TrainState, its f64 sum and abs-sum on its device."""
+    import torch
+    from repro_torch.train import checkpoint
+
+    names, leaves = checkpoint._leaf_paths(state)
+    with torch.no_grad():
+        sums = torch.stack([torch.stack([t.sum(dtype=torch.float64),
+                                         t.abs().sum(dtype=torch.float64)]) for t in leaves])
+    return dict(zip(names, sums.tolist()))
+
+
+def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["seq_len"],
+                  global_batch=TRAIN["global_batch"], opt=TRAIN_OPT):
+    """Trains ``cfg`` (by default stablelm-12b at its published widths, cut
+    as phase 5 cuts it) under the control plane through ``spec``'s schedule;
+    raises unless every elastic gate holds.  Returns the readings."""
+    import resource
+    import statistics
+    import tempfile
+    from collections import Counter
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.coord import ElasticConfig, ElasticTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.train import OptConfig
+    from repro_torch.train.data import DataConfig
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    if cfg is None:
+        cfg = get_config(TRAIN["arch"]).replace(**TRAIN["cut"])
+        widths = {k: getattr(cfg, k) for k in TRAIN["widths"]}
+        if widths != TRAIN["widths"]:
+            raise AssertionError(f"elastic: {cfg.arch_id} is not at its published widths")
+    want = elastic_expected(spec)
+    launches, shapes = dict(ops.LAUNCHES), Counter(ops.LAUNCH_SHAPES)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        room = elastic_preflight(checkpoint_bytes(cfg), ckpt_dir)
+        log(f"elastic: checkpoint room [{card}]:", json.dumps(room))
+        t0 = time.perf_counter()
+        tr = ElasticTrainer(
+            cfg, OptConfig(**opt),
+            DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch),
+            pods=list(spec["pods"]), device=device,
+            ecfg=ElasticConfig(checkpoint_dir=ckpt_dir, commit_every=spec["commit_every"],
+                               checkpoint_every=spec["checkpoint_every"]))
+        sync()
+        n_params = sum(p.numel() for p in tr.state.params.parameters())
+        log(f"elastic: {cfg.arch_id} {cfg.n_layers} layers, {n_params / 1e9:.4f} B params, "
+            f"trainer built in {time.perf_counter() - t0:.1f} s; pods {list(spec['pods'])}")
+
+        clock = HostClock()
+        clock.wrap(tr.controller.sim, "run_for")
+        clock.wrap(tr.controller, "commit")
+        saves = []
+        save = tr.save_checkpoint
+
+        def timed_save():
+            t_sums = time.perf_counter()
+            sums = state_sums(tr.state)
+            sync()
+            t0 = time.perf_counter()
+            save()
+            t1 = time.perf_counter()
+            path = os.path.join(ckpt_dir, f"step{tr.step:08d}_shard0.npz")
+            saves.append(dict(step=tr.step, s=t1 - t0, with_sums_s=t1 - t_sums, sums=sums,
+                              bytes=os.path.getsize(path),
+                              durable_step=tr.controller.durable_step()))
+
+        tr.save_checkpoint = timed_save
+        rows, changes, restore = [], [], None
+        for n, op, args in spec["schedule"]:
+            for _ in range(n):
+                epoch, clock.ms, n_saves = tr.controller.epoch, 0.0, len(saves)
+                t0 = time.perf_counter()
+                tr.run(1)
+                wall = (time.perf_counter() - t0) * 1e3
+                save_ms = sum(s["with_sums_s"] for s in saves[n_saves:]) * 1e3
+                rows.append(dict(step=tr.step, epoch=epoch, loss=tr.losses[-1],
+                                 ms=wall - save_ms, control_ms=clock.ms, save_ms=save_ms))
+            if op == "restore_latest":
+                sync()
+                t0 = time.perf_counter()
+                ok = tr.restore_latest()
+                sync()
+                restore = dict(ok=ok, step=tr.step, s=time.perf_counter() - t0,
+                               sums=state_sums(tr.state))
+            elif op is not None:
+                t0 = time.perf_counter()
+                tel = (tr.scale_to(list(args)) if op == "scale_to"
+                       else tr.fail_and_replace(*args))
+                changes.append(dict(op=op, args=list(args), after_step=tr.step,
+                                    wall_ms=(time.perf_counter() - t0) * 1e3,
+                                    activation_ms=tel["activation_ms"]))
+
+        if dict(ops.LAUNCHES) != launches or Counter(ops.LAUNCH_SHAPES) != shapes:
+            raise AssertionError(f"elastic: kernels launched: {dict(ops.LAUNCHES)}")
+        tr.controller.check_safety()
+        ctrl, ledger = tr.controller, tr.controller.ledger()
+        remeshed = [tuple(e["pods"]) for e in tr.events if e["t"] == "remesh"]
+        losses = [r["loss"] for r in rows]
+        before = want["steps_before_restore"]
+        first, replay = losses[restore["step"]], losses[before]
+        replay_rel = abs(replay - first) / abs(first)
+        second_rel = abs(losses[before + 1] - losses[restore["step"] + 1]) / abs(
+            losses[restore["step"] + 1])
+        out = dict(arch=cfg.arch_id, n_layers=cfg.n_layers, n_params=n_params, card=card,
+                   stall_count=ctrl.dep.leader.stall_count, epoch=ctrl.membership()[0],
+                   pods=list(ctrl.membership()[1]), durable_step=ctrl.durable_step(),
+                   ledger_entries=len(ledger.history), retired_configs=ctrl.retired_config_count(),
+                   changes=changes, replay_loss_rel=replay_rel, replay2_loss_rel=second_rel,
+                   losses=losses)
+
+        # the gates
+        faults = []
+        if out["stall_count"] != 0:
+            faults.append(f"stall_count {out['stall_count']}")
+        if remeshed != want["epochs"] or out["epoch"] != len(want["epochs"]) - 1 or tuple(
+                out["pods"]) != want["epochs"][-1]:
+            faults.append(f"epochs {remeshed}, ledger epoch {out['epoch']} {out['pods']}")
+        if not all(c["activation_ms"] < ACTIVATION_MS_MAX for c in changes):
+            faults.append(f"activation {[c['activation_ms'] for c in changes]}")
+        if [s["step"] for s in saves] != want["checkpoints"] or any(
+                s["durable_step"] != s["step"] for s in saves):
+            faults.append(f"checkpoints {[(s['step'], s['durable_step']) for s in saves]}")
+        if out["durable_step"] != want["restored_to"]:
+            faults.append(f"durable step {out['durable_step']}")
+        if not restore["ok"] or restore["step"] != want["restored_to"]:
+            faults.append(f"restore {restore['ok']} to step {restore['step']}")
+        elif restore["sums"] != saves[-1]["sums"]:
+            bad = [k for k in restore["sums"] if restore["sums"][k] != saves[-1]["sums"][k]]
+            faults.append(f"restored tensors differ from the saved ones: {bad[:8]}")
+        if replay_rel > REPLAY_LOSS_RTOL:
+            faults.append(f"replayed step {restore['step'] + 1}: loss {replay} vs {first}")
+        if not all(math.isfinite(x) for x in losses) or not losses[before - 1] < losses[0]:
+            faults.append(f"losses {losses}")
+
+        # the readings
+        by_epoch = {}
+        for r in rows:
+            by_epoch.setdefault(r["epoch"], []).append(r["ms"])
+        medians = {e: statistics.median(ms) for e, ms in by_epoch.items()}
+        # rows[i] ran step i + 1: a change after step k is followed by rows[k],
+        # the restore by rows[before] (step 11 again)
+        after = [rows[c["after_step"]] for c in changes] + [rows[before]]
+        out.update(
+            ms_per_step_by_epoch=medians,
+            steps_after_change=[dict(step=r["step"], epoch=r["epoch"], ms=r["ms"],
+                                     epoch_median_ms=medians[r["epoch"]],
+                                     ratio=r["ms"] / medians[r["epoch"]]) for r in after],
+            control_ms_per_step=statistics.median(r["control_ms"] for r in rows),
+            control_ms_max=max(r["control_ms"] for r in rows),
+            control_share=sum(r["control_ms"] for r in rows) / sum(r["ms"] for r in rows),
+            checkpoint_gb=saves[-1]["bytes"] / 1e9 if saves else None,
+            save_s=saves[-1]["s"] if saves else None, restore_s=restore["s"],
+            replay_loss=[first, replay],
+            host_peak_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+            steps=rows)
+        if saves:
+            out["save_gb_per_s"] = out["checkpoint_gb"] / out["save_s"]
+            out["restore_gb_per_s"] = out["checkpoint_gb"] / out["restore_s"]
+        log(f"elastic: ms/step by epoch [{card}]:",
+            json.dumps({e: round(m, 2) for e, m in medians.items()}),
+            "; steps after a change vs their epoch's median:",
+            json.dumps([[s["step"], round(s["ms"], 2), round(s["ratio"], 3)]
+                        for s in out["steps_after_change"]]))
+        log(f"elastic: ms of each step [{card}] (a checkpoint's save taken out):",
+            json.dumps([round(r["ms"], 2) for r in rows]))
+        log(f"elastic: control plane host ms per step [{card}]: median "
+            f"{out['control_ms_per_step']:.3f}, max {out['control_ms_max']:.3f}, "
+            f"{out['control_share']:.3%} of the steps' wall")
+        for c in changes:
+            log(f"elastic: {c['op']}{tuple(c['args'])} after step {c['after_step']} [{card}]: "
+                f"wall {c['wall_ms']:.3f} ms, active after {c['activation_ms']:.3f} simulated ms")
+        if saves:
+            log(f"elastic: checkpoint at step {saves[-1]['step']} [{card}]: "
+                f"{out['checkpoint_gb']:.3f} GB, save {out['save_s']:.2f} s "
+                f"({out['save_gb_per_s']:.3f} GB/s, commit included), restore "
+                f"{out['restore_s']:.2f} s ({out['restore_gb_per_s']:.3f} GB/s); restored "
+                f"tensors equal to the saved ones: {restore['sums'] == saves[-1]['sums']}; "
+                f"the process's peak RSS {out['host_peak_rss_gb']:.1f} GB")
+        log(f"elastic: replayed step {restore['step'] + 1} [{card}]: loss {replay!r} vs "
+            f"{first!r} the first time, {replay_rel:.3e} relative (gate "
+            f"{REPLAY_LOSS_RTOL}); the second replayed step {second_rel:.3e} (not gated)")
+        log(f"elastic: ledger [{card}]: {out['ledger_entries']} entries, epoch {out['epoch']} "
+            f"pods {out['pods']}, durable step {out['durable_step']}, "
+            f"{out['retired_configs']} retired acceptor configs, stall_count "
+            f"{out['stall_count']}, no kernel launch")
+        log(f"elastic: losses [{card}]:", json.dumps([round(x, 4) for x in losses]))
+        del tr
+    if faults:
+        raise AssertionError("elastic: " + "; ".join(faults))
+    return out
+
+
 KERNELS = {
     "flash_prefill": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -1341,6 +1663,7 @@ def main() -> int:
     paths = {arch: slice_phase(card, arch, spec) for arch, spec in SLICES.items()}
     log(json.dumps({"kernels": kernel_rows(checked, paths)}))
     train = train_phase(card)
+    elastic = elastic_phase(card)
     log(card)
     for arch, (_, _, rates) in paths.items():
         log(f"rates {arch} [{card}]: prefill {rates['prefill_ms']:.2f} ms "
@@ -1355,6 +1678,12 @@ def main() -> int:
         f"{train['peak_gb']:.1f} of 80 GB, optimizer {train['optimizer_share']:.1%} of a step, "
         f"device busy {train['busy_share']:.1%} of a profiled step")
     log("train rates:", json.dumps(train))
+    log(f"elastic rates {elastic['arch']} ({elastic['n_layers']} layers) [{card}]: ms/step by "
+        f"epoch {json.dumps({e: round(m, 2) for e, m in elastic['ms_per_step_by_epoch'].items()})}"
+        f", control plane {elastic['control_ms_per_step']:.3f} ms a step, checkpoint "
+        f"{elastic['checkpoint_gb']:.2f} GB saved in {elastic['save_s']:.1f} s and restored in "
+        f"{elastic['restore_s']:.1f} s, stall_count {elastic['stall_count']}")
+    log("elastic rates:", json.dumps(elastic))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,11 @@
   depth only, its memory reckoning and FLOP count follow from the config,
   the first-loss reckoning holds for a freshly drawn model, and gate (a)'s
   comparison runs (the CPU against the CPU) and rejects a step that strays.
+* The elastic phase: ``ELASTIC``'s schedule gives four epochs, one
+  checkpoint at step 10 and a restore to it; the checkpoint-size reckoning
+  matches a saved state and fits the machine; the room check raises when
+  short; the phase runs its gates at the smoke size on the CPU and rejects a
+  restore that does not bring the saved tensors back.
 """
 
 import importlib.util
@@ -228,3 +233,74 @@ def test_parity_case_runs_and_rejects_a_stray_step(monkeypatch):
     monkeypatch.setattr("repro_torch.train.make_train_step", one_side_off)
     with pytest.raises(AssertionError, match="lr|off by"):
         smoke.parity_case("stablelm_12b", {}, "cpu", steps=1)
+
+
+def test_elastic_schedule():
+    spec = smoke.ELASTIC
+    want = smoke.elastic_expected(spec)
+    assert want["epochs"] == [("pod0", "pod1", "pod2"), ("pod0", "pod1", "pod2", "pod3"),
+                              ("pod0", "pod1", "pod2"), ("pod0", "pod1", "pod4")]
+    assert want["steps_before_restore"] == 18 and sum(n for n, _, _ in spec["schedule"]) == 20
+    assert want["checkpoints"] == [10] and want["restored_to"] == 10
+    assert spec["commit_every"] == 5
+    # 2f+1 = 3 acceptors one a pod: every epoch has at least three pods, so
+    # losing one stays within f = 1 (benchmarks/bench_elastic.py's constraint)
+    assert min(len(p) for p in want["epochs"]) >= 3
+
+
+def test_checkpoint_size_reckoning(tmp_path):
+    cut = get_config(smoke.TRAIN["arch"]).replace(**smoke.TRAIN["cut"])
+    n = smoke.checkpoint_bytes(cut)
+    assert 39.0e9 < n < 39.1e9  # 12 B x 3.2512 B params
+    # two host copies and the headroom fit the H100 machine's 105.9 GB
+    assert smoke.CKPT_HOST_COPIES * n + smoke.HOST_HEADROOM_BYTES < 105.9e9
+    from repro_torch.train import OptConfig, checkpoint, init_state
+
+    cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
+    state = init_state(cfg, OptConfig(), torch.Generator().manual_seed(0), device="cpu")
+    man = checkpoint.save(str(tmp_path), 0, state)
+    size = (tmp_path / man["files"]["0"]["path"]).stat().st_size
+    exact = 12 * sum(p.numel() for p in state.params.parameters()) + 8  # and two int32 steps
+    assert smoke.checkpoint_bytes(cfg) <= exact <= size <= exact + 512 * len(man["entries"])
+
+
+def test_elastic_preflight_raises_when_short(tmp_path, monkeypatch):
+    assert smoke.elastic_preflight(10 ** 6, str(tmp_path))["checkpoint_gb"] == 1e-3
+    with pytest.raises(AssertionError, match="no room"):
+        smoke.elastic_preflight(10 ** 18, str(tmp_path))  # the disk
+    monkeypatch.setattr(smoke, "mem_available_bytes", lambda: 10 ** 9)
+    with pytest.raises(AssertionError, match="no room"):
+        smoke.elastic_preflight(10 ** 6, str(tmp_path))  # the memory
+
+
+def elastic_smoke():
+    cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
+    return smoke.elastic_phase("CPU", device="cpu", cfg=cfg, seq_len=32,
+                               opt=dict(lr=3e-3, warmup_steps=5))
+
+
+def test_elastic_phase_on_cpu():
+    out = elastic_smoke()
+    assert out["stall_count"] == 0 and out["durable_step"] == 10
+    assert (out["epoch"], out["pods"]) == (3, ["pod0", "pod1", "pod4"])
+    # the simulator is deterministic: the JAX controller's readings
+    assert [c["activation_ms"] for c in out["changes"]] == pytest.approx([1.0] * 3)
+    assert out["retired_configs"] == 3 and out["replay_loss_rel"] == 0.0
+    assert [s["step"] for s in out["steps_after_change"]] == [7, 11, 15, 11]
+    assert len(out["losses"]) == 20
+
+
+def test_elastic_phase_rejects_a_changed_restore(monkeypatch):
+    from repro_torch.train import checkpoint
+
+    real = checkpoint.restore
+
+    def restore_off(directory, manifest, like):
+        out = real(directory, manifest, like)
+        with torch.no_grad():
+            next(like.params.parameters()).view(-1)[0] += 1e-3
+        return out
+
+    monkeypatch.setattr(checkpoint, "restore", restore_off)
+    with pytest.raises(AssertionError, match="restored tensors differ"):
+        elastic_smoke()

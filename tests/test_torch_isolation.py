@@ -11,7 +11,7 @@
 * The kernel rule (``layers.use_kernel``): ``"auto"`` takes the kernels on
   CUDA only while autograd does not record, JAX's plain rule otherwise;
   ``"pallas"`` raises under autograd.  The training entry points default to
-  CUDA too.
+  CUDA too, and so do the elastic trainer and the train launcher.
 """
 
 import dataclasses
@@ -27,6 +27,8 @@ from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.coord import ElasticTrainer
+from repro_torch.launch import train as launch_train
 from repro_torch.models import LM, EncDecLM, get_model
 from repro_torch.models import layers, mamba2
 from repro_torch.serve import Engine
@@ -177,3 +179,16 @@ def test_train_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         TokenPipeline(DataConfig(vocab=16, seq_len=4, global_batch=1)).torch_batch_at(0)
     init_state(cfg, OptConfig(), torch.Generator(), device="cpu")  # asking for the CPU works
+
+
+def test_elastic_entry_points_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the check is for one without")
+    cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticTrainer(cfg, OptConfig(), dcfg, pods=["pod0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "stablelm_12b", "--smoke", "--steps", "1",
+                           "--checkpoint-dir", str(tmp_path)])
+    ElasticTrainer(cfg, OptConfig(), dcfg, pods=["pod0"], device="cpu")  # asking for the CPU works
