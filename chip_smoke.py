@@ -33,7 +33,10 @@ Phases, each of which fails the run on any fault:
    MoE also the share of routing choices on which the two runs differ);
    then repeats that comparison with the same draws in f32.
 4. Rates: prefill ms, decode ms per step and generated tokens per second,
-   and a profile of each model's prefill and decode.
+   and a profile of each model's prefill and decode, read by
+   ``launch.trace_analysis.read_profile``: the device's busy share, the
+   kernels that take the most, and each wrapper's launches as the host
+   counts them and as the device trace shows them.
 5. Training (``repro_torch.train``, plain PyTorch with autograd, as the
    reference trains): (a) each family's smoke config trained in f32 on the
    card against the same steps on the CPU; (b) stablelm-12b at its
@@ -54,6 +57,16 @@ Phases, each of which fails the run on any fault:
    kernel launch; readings: ms/step by epoch and right after each change,
    the control plane's host ms per step, each change's wall ms, the
    checkpoint's GB, seconds and GB/s.
+7. Launch tooling (``repro_torch.launch``): (a) in every profiled window of
+   phase 4 the device trace shows each wrapper's kernels launched as often
+   as the host counted and ``SLICES`` says (stablelm: 40 ``flash_prefill``
+   a prefill and 40 ``flash_decode`` a decode step; mamba2: 64
+   ``ssd_intra_chunk`` a prefill); (b) the dry-run's bytes at one device,
+   reckoned on meta, equal the live tensors of phases 3 and 5 (each
+   slice's parameters and decode state, the 8-layer training state),
+   printed beside the allocator's readings; (c) the roofline of stablelm's
+   decode step from ``trace_analysis.count``, beside its measured ms/step.
+   The H100's constants (bounds, peaks, L2) are ``launch.mesh``'s.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script exits with
 a non-zero code, and prints no result, when no CUDA device is present.
@@ -71,9 +84,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-L2_BYTES = 50e6  # H100's L2 cache
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 without
+from repro_torch.launch.mesh import HBM_BW, L2_BYTES, PEAK_FLOPS  # noqa: E402  the H100's
+
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}  # as tests/kernels/test_kernels.py
 # The SSD kernel's outputs are f32 in either input type, and with bf16
 # inputs its products are exact (C B^T on the tensor cores with f32
@@ -142,7 +154,7 @@ def close(out, want, dtype, tol=None, step=0.0) -> float:
 
 
 def bound_ms(bytes_moved: float, flops: float, dtype) -> tuple:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_bytes = bytes_moved / HBM_BW * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -791,9 +803,11 @@ def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
         + (f"cut {json.dumps(cut)}" if cut else "no cut"))
     prompt = spec["prompt"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = get_model(cfg).init(gen, device="cuda")
     torch.cuda.synchronize()
+    allocated_after_init = torch.cuda.memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     log(f"slice: {arch} {n_params / 1e9:.2f} B params in {cfg.n_layers} layers "
@@ -858,11 +872,17 @@ def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
         torch.cuda.synchronize()
         one_step_ms.append((time.perf_counter() - t0) * 1e3)
     decode_ms = (wall * 1e3 - sorted(one_step_ms)[1]) / (gen_steps - 1)
-    profile_slice(arch, model, inputs, max_len)
+    windows = profile_slice(arch, model, inputs, max_len)
+    # The live tensors, for phase 7's bytes against the dry-run's reckoning.
+    live = dict(params=tree_bytes(dict(model.named_parameters())),
+                decode_state=tree_bytes(windows.pop("decode_state")), max_len=max_len,
+                allocated_after_init=allocated_after_init,
+                peak_allocated=torch.cuda.max_memory_allocated())
     rates = dict(arch=arch, card=card, prefill_ms=sorted(prefill_ms)[1],
                  decode_ms_per_step=decode_ms, generate_wall_ms=wall * 1e3,
                  tok_per_s=batch * out.steps / wall, batch=batch, prompt=prompt,
-                 steps=out.steps, n_layers=cfg.n_layers, launches=launches, logits_bf16=bf16)
+                 steps=out.steps, n_layers=cfg.n_layers, launches=launches, logits_bf16=bf16,
+                 profile=windows, live_bytes=live)
 
     # The same draws in f32, where the kernel and plain paths differ only in
     # the order of f32 sums: a tight check of the kernels' wiring at full
@@ -892,18 +912,33 @@ def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
     return launches, shapes, rates
 
 
+# The device kernel (its symbol in ``csrc/``) that one call of each wrapper
+# of ``ops`` launches on the served bf16 paths: head sizes 64-160 take the
+# wgmma prefill.
+DEVICE_KERNELS = {"flash_prefill": "flash_prefill_wgmma_kernel",
+                  "flash_decode": "flash_decode_bf16_kernel",
+                  "ssd_intra_chunk": "ssd_intra_chunk_bf16_kernel"}
+
+
 def profile_slice(arch, model, inputs, max_len, decode_steps=8, top=8):
     """torch.profiler over one prefill step and a few decode steps: wall
-    time, the device's busy and idle share, and the kernels that take the
-    most."""
+    time, the device's busy and idle share, the kernels that take the most,
+    and each wrapper's launches as the host counts them (``ops.LAUNCHES``)
+    and as the device trace shows them; raises unless the two agree.
+    Returns per window the launches, the busy share and the decode state
+    the prefill built."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.trace_analysis import check_launches, read_profile
     from repro_torch.serve import make_prefill_step
 
     prefill_step = make_prefill_step(model, max_len)
+    windows = {}
     for label in ("prefill", "decode"):
         logits, state = prefill_step(inputs)
         torch.cuda.synchronize()
+        ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if label == "prefill":
@@ -915,20 +950,36 @@ def profile_slice(arch, model, inputs, max_len, decode_steps=8, top=8):
                     logits, state = model.decode_step(state, nxt[:, None])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type.name == "CUDA"]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        kernels.sort(key=lambda e: -e.self_device_time_total)
-        log(f"profile {arch} {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-            f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}"
-            + (f", {decode_steps} steps" if label == "decode" else ""))
-        for e in kernels[:top]:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
-        host = sorted((e for e in events if e.device_type.name == "CPU"),
+        reading = read_profile(prof, wall_ms=wall_ms)
+        by_symbol = check_launches(reading, {DEVICE_KERNELS[name]: n
+                                             for name, n in ops.LAUNCHES.items()})
+        device = {name: by_symbol[sym] for name, sym in DEVICE_KERNELS.items()}
+        windows[label] = dict(host_launches=dict(ops.LAUNCHES), device_launches=device,
+                              busy_share=reading.busy_share, wall_ms=wall_ms,
+                              steps=decode_steps if label == "decode" else 1)
+        log(f"profile {arch} {label}: wall {wall_ms:.2f} ms, device busy {reading.busy_ms:.2f} "
+            f"ms ({reading.busy_share:.1%}), idle {reading.idle_share:.1%}"
+            + (f", {decode_steps} steps" if label == "decode" else "")
+            + f"; launches on the host {json.dumps(dict(ops.LAUNCHES))}, in the device trace "
+            f"{json.dumps(device)}")
+        for name, k in reading.top(top):
+            log(f"  {k.device_ms:9.3f} ms {k.launches:6d}x  {name[:100]}")
+        host = sorted((e for e in prof.key_averages() if e.device_type.name == "CPU"),
                       key=lambda e: -e.self_cpu_time_total)
         log(f"profile {arch} {label}: host ops by self CPU time (profiler overhead included)")
         for e in host[:top]:
             log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    windows["decode_state"] = state
+    return windows
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of a tree (dicts, tuples, named tuples)."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
 
 
 # ---------------------------------------------------------------------------
@@ -1160,6 +1211,7 @@ def profile_train_step(step_fn, state, batch, top=8):
     the kernels that take the most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.trace_analysis import read_profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1167,14 +1219,12 @@ def profile_train_step(step_fn, state, batch, top=8):
         state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    log(f"profile train step: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
-    for e in kernels[:top]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
-    return state, dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms)
+    reading = read_profile(prof, wall_ms=wall_ms)
+    log(f"profile train step: wall {wall_ms:.2f} ms, device busy {reading.busy_ms:.2f} ms "
+        f"({reading.busy_share:.1%}), idle {reading.idle_share:.1%}")
+    for name, k in reading.top(top):
+        log(f"  {k.device_ms:9.3f} ms {k.launches:6d}x  {name[:100]}")
+    return state, dict(wall_ms=wall_ms, busy_ms=reading.busy_ms, busy_share=reading.busy_share)
 
 
 def train_phase(card, spec=TRAIN, device="cuda"):
@@ -1220,6 +1270,9 @@ def train_phase(card, spec=TRAIN, device="cuda"):
     t0 = time.perf_counter()
     state = init_state(cfg, ocfg, gen, device)
     torch.cuda.synchronize()
+    live = dict(params=tree_bytes(dict(state.params.named_parameters())),
+                optimizer=tree_bytes((state.opt, state.step)),
+                allocated_after_init=torch.cuda.memory_allocated())
     n_params = sum(p.numel() for p in state.params.parameters())
     log(f"train: {spec['arch']} at its published widths {json.dumps(widths)}, cut "
         f"{json.dumps(spec['cut'])}: {n_params / 1e9:.3f} B params, f32 masters and moments "
@@ -1272,7 +1325,7 @@ def train_phase(card, spec=TRAIN, device="cuda"):
                  losses_after=after,
                  grad_norms=[r["grad_norm"] for r in steps], **split,
                  busy_share=prof["busy_share"], profiled_wall_ms=prof["wall_ms"],
-                 bf16_pair=pair)
+                 bf16_pair=pair, live_bytes=live)
     del state
     torch.cuda.empty_cache()
     return rates
@@ -1590,6 +1643,107 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the launch tooling (the port's launch/: trace analysis, the
+# dry-run's byte reckoning, the roofline) read against phases 3 to 5
+# ---------------------------------------------------------------------------
+def window_launches(spec, label, steps):
+    """Each wrapper's launches in a profiled window of ``SLICES`` spec: one
+    prefill, or ``steps`` decode steps."""
+    prefill, per_step, ssd = spec["launches"]
+    if label == "prefill":
+        return {"flash_prefill": prefill, "flash_decode": 0, "ssd_intra_chunk": ssd}
+    return {"flash_prefill": 0, "flash_decode": per_step * steps, "ssd_intra_chunk": 0}
+
+
+def tooling_phase(card, paths, train, spec=TRAIN):
+    """(a) In each slice's profiled prefill and decode windows (phase 4) the
+    device trace shows each wrapper's kernels launched as often as the host
+    counted and ``SLICES`` says (stablelm: 40 ``flash_prefill`` a prefill, 40
+    ``flash_decode`` a decode step; mamba2: 64 ``ssd_intra_chunk`` a
+    prefill).  (b) The dry-run's bytes at one device, reckoned on meta,
+    equal the live tensors: each slice's parameters and decode state (phase
+    3) and the 8-layer f32 training state (phase 5).  (c) The roofline of
+    stablelm's decode step from ``count`` on meta, beside its measured
+    ms/step.  Raises unless (a) and (b) hold; returns the readings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.trace_analysis import count
+    from repro_torch.models.sharding import policy_for
+    from repro_torch.train import OptConfig
+
+    t0 = time.perf_counter()
+    out = dict(card=card, launches={}, bytes={})
+    for arch, (_, _, rates) in paths.items():  # (a)
+        for label, w in rates["profile"].items():
+            want = window_launches(SLICES[arch], label, w["steps"])
+            log(f"tooling: (a) {arch} {label} ({w['steps']} step(s)) [{card}]: device trace "
+                f"{json.dumps(w['device_launches'])}, host {json.dumps(w['host_launches'])}, "
+                f"expected {json.dumps(want)}")
+            if w["device_launches"] != want or w["host_launches"] != want:
+                raise AssertionError(f"tooling: {arch} {label} launches: device "
+                                     f"{w['device_launches']}, host {w['host_launches']}, "
+                                     f"expected {want}")
+            out["launches"][f"{arch} {label}"] = w["device_launches"]
+
+    for arch, (_, _, rates) in paths.items():  # (b), served
+        live = rates["live_bytes"]
+        cfg = get_config(arch).replace(**SLICES[arch].get("cut", {}))
+        _, _, trees, specs_for = dryrun.serving_trees(cfg, rates["batch"], live["max_len"])
+        reckoned = dryrun.one_device_bytes(trees, specs_for)
+        row = dict(arch=arch, batch=rates["batch"], max_len=live["max_len"],
+                   live_params=live["params"], reckoned_params=reckoned["params"],
+                   live_decode_state=live["decode_state"],
+                   reckoned_decode_state=reckoned["decode_state"],
+                   allocated_after_init=live["allocated_after_init"],
+                   peak_allocated=live["peak_allocated"])
+        log(f"tooling: (b) {arch} [{card}]:", json.dumps(row))
+        if (live["params"], live["decode_state"]) != (reckoned["params"],
+                                                      reckoned["decode_state"]):
+            raise AssertionError(f"tooling: {arch} live bytes differ from the dry-run's: {row}")
+        out["bytes"][arch] = row
+    cfg = get_config(spec["arch"]).replace(**spec["cut"])  # (b), trained
+    _, trees, specs_for = dryrun.train_trees(cfg, OptConfig(**TRAIN_OPT),
+                                             policy_for(cfg, "train"))
+    reckoned = dryrun.one_device_bytes(trees, specs_for)
+    live = train["live_bytes"]
+    row = dict(arch=f"{spec['arch']} train ({cfg.n_layers} layers)",
+               live_params=live["params"], reckoned_params=reckoned["params"],
+               live_optimizer=live["optimizer"], reckoned_optimizer=reckoned["optimizer"],
+               allocated_after_init=live["allocated_after_init"],
+               peak_allocated=train["peak_gb"] * 1e9)
+    log(f"tooling: (b) {row['arch']} [{card}]:", json.dumps(row))
+    if (live["params"], live["optimizer"]) != (reckoned["params"], reckoned["optimizer"]):
+        raise AssertionError(f"tooling: the training state's live bytes differ: {row}")
+    out["bytes"]["train"] = row
+
+    arch = "stablelm_12b"  # (c)
+    rates = paths[arch][2]
+    model, state, _, _ = dryrun.serving_trees(get_config(arch), rates["batch"],
+                                              rates["live_bytes"]["max_len"])
+    step = count(model.decode_step, state,
+                 torch.zeros((rates["batch"], 1), dtype=torch.int32, device="meta"))
+    terms = roofline.roofline_terms(flops_per_device=step.flops, bytes_per_device=step.bytes,
+                                    traffic=dryrun.NO_TRAFFIC)
+    bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    out["decode_roofline"] = dict(
+        arch=arch, flops=step.flops, bytes=step.bytes, compute_ms=terms["compute_s"] * 1e3,
+        memory_ms=terms["memory_s"] * 1e3, dominant=terms["dominant"],
+        measured_ms_per_step=rates["decode_ms_per_step"],
+        bound_share=bound_ms / rates["decode_ms_per_step"],
+        top_ops=step.top_ops(5))
+    log(f"tooling: (c) {arch} decode step (B={rates['batch']}, cache "
+        f"{rates['live_bytes']['max_len']}) [{card}]: {step.flops / 1e9:.2f} GFLOP, "
+        f"{step.bytes / 1e9:.3f} GB (eager ops on meta, plain attention in the kernel's place)"
+        f"; compute {terms['compute_s'] * 1e3:.4f} ms, memory {terms['memory_s'] * 1e3:.3f} ms "
+        f"on the H100's peaks; measured {rates['decode_ms_per_step']:.2f} ms/step, "
+        f"{bound_ms / rates['decode_ms_per_step']:.1%} of it")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tooling: phase 7 took {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 KERNELS = {
     "flash_prefill": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -1664,6 +1818,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernel_rows(checked, paths)}))
     train = train_phase(card)
     elastic = elastic_phase(card)
+    tooling = tooling_phase(card, paths, train)
     log(card)
     for arch, (_, _, rates) in paths.items():
         log(f"rates {arch} [{card}]: prefill {rates['prefill_ms']:.2f} ms "
@@ -1684,6 +1839,7 @@ def main() -> int:
         f"{elastic['checkpoint_gb']:.2f} GB saved in {elastic['save_s']:.1f} s and restored in "
         f"{elastic['restore_s']:.1f} s, stall_count {elastic['stall_count']}")
     log("elastic rates:", json.dumps(elastic))
+    log("tooling:", json.dumps(tooling))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

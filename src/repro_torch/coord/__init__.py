@@ -14,7 +14,7 @@ from .control_plane import (
     ReconfigCommand,
     StepRecord,
 )
-from .elastic import ElasticConfig, ElasticTrainer
+from .elastic import ElasticConfig, ElasticTrainer, state_specs
 from .failure import FailureDetector
 
 __all__ = [
@@ -27,4 +27,5 @@ __all__ = [
     "QuorumRecord",
     "ReconfigCommand",
     "StepRecord",
+    "state_specs",
 ]

@@ -29,8 +29,9 @@ training):
 Pods are logical on the one device: the control plane, the pipeline and
 the checkpoints see the pod set, and the state stays where it is.  That is
 the reference's collapse when it has fewer devices than pods, and its
-single-device run records the same events.  Sharding the state over many
-devices (the reference's ``state_specs``) waits for ``models/sharding.py``.
+single-device run records the same events.  ``state_specs`` gives the
+layout of the state over a (pod, data, model) mesh, as the reference's
+does; the trainer does not shard it yet.
 """
 
 from __future__ import annotations
@@ -40,16 +41,74 @@ import json
 import os
 import tempfile
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
 from .. import resolve_device
 from ..core.proposer import Options
 from ..models.config import ModelConfig
-from ..train import OptConfig, checkpoint, init_state, make_train_step
+from ..models.sharding import Spec, param_specs
+from ..train import OptConfig, TrainState, checkpoint, init_state, make_train_step
 from ..train.data import DataConfig, TokenPipeline
+from ..train.optimizer import AdamState
 from .control_plane import ClusterController
+
+
+def _widen(spec: Spec, leaf, mesh_axes: Dict[str, int]) -> Spec:
+    """Widen the FSDP axis 'data' to ('pod','data') where divisible —
+    ZeRO across the DCN axis for optimizer state."""
+    total = mesh_axes.get("pod", 1) * mesh_axes.get("data", 1)
+    out = []
+    for dim, ax in zip(leaf.shape, tuple(spec) + (None,) * (leaf.dim() - len(spec))):
+        if ax == "data" and dim % total == 0 and "pod" in mesh_axes:
+            out.append(("pod", "data"))
+        else:
+            out.append(ax)
+    return tuple(out)
+
+
+def state_specs(
+    cfg: ModelConfig, state: TrainState, mesh_axes: Dict[str, int], policy: str = "tp"
+) -> TrainState:
+    """Specs for the full TrainState, in its structure: params per policy
+    (by parameter name), optimizer moments widened to ('pod','data') FSDP
+    (ZeRO-1 across DCN), the step counts replicated."""
+    params = dict(state.params.named_parameters())
+    pspec = param_specs(cfg, params, mesh_axes, policy=policy)
+    wide = {k: _widen(pspec[k], p, mesh_axes) for k, p in params.items()}
+
+    def per_param(spec: Spec, node) -> Spec:
+        if not isinstance(node, Mapping):
+            return spec
+        # int8 optimizer state: q (*param_lead, nb, block) / s (..., nb, 1)
+        # per param.  The spec is CONGRUENT with the param spec (same axes
+        # on the same leading dims; the param's last-dim axis moves to the
+        # block-count dim when it still divides) — any other layout forces
+        # a reshard between q/s and the gradients.
+        q = node["q"]
+        base = tuple(spec) + (None,) * (q.dim() - 1 - len(spec))
+        last_ax = base[-1] if base else None
+        if last_ax is not None:
+            axes = last_ax if isinstance(last_ax, tuple) else (last_ax,)
+            n = 1
+            for a in axes:
+                n *= mesh_axes.get(a, 1)
+            nb = q.shape[-2]
+            if n <= 1 or nb % n != 0:
+                last_ax = None
+        lead = base[:-1] if base else ()
+        qspec = (*lead, last_ax, None)
+        return {"q": qspec, "s": qspec}
+
+    def opt_like(moments):
+        return {k: per_param(wide[k], node) for k, node in moments.items()}
+
+    return TrainState(
+        params=pspec,
+        opt=AdamState(m=opt_like(state.opt.m), v=opt_like(state.opt.v), step=()),
+        step=(),
+    )
 
 
 @dataclass

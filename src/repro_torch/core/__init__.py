@@ -3,14 +3,15 @@ plane needs it.
 
 The modules here are byte-for-byte copies of their namesakes in
 ``repro.core`` (``tests/test_torch_core_copy.py`` holds each equal to its
-source): the roles, the simulator transport and the deployment builder
-that ``coord.control_plane`` drives.  The rest of the consensus testbed
-(the binary codec, the nemesis, the asyncio, TCP and process transports,
-the model checker, the scenarios, Fast Paxos, single-decree and
-horizontal Paxos) is not copied; the lazy imports that reach it
+source): the roles, the simulator transport, the deployment builder that
+``coord.control_plane`` drives, and the binary codec (``wire``), which the
+router's sealed-batch relay imports on the simulator too.  The rest of the
+consensus testbed (the nemesis, the asyncio, TCP and process transports,
+the model checker, the scenarios, Fast Paxos, single-decree and horizontal
+Paxos) is not copied yet; the lazy imports that reach it
 (``Deployment.attach_nemesis``, ``make_transport`` for ``"async"``,
-``"tcp"`` and ``"proc"``, ``ClusterSpec.deploy("proc")``, the byte path
-of a ``SealedBatch``) raise ``ModuleNotFoundError``.
+``"tcp"`` and ``"proc"``, ``ClusterSpec.deploy("proc")``) raise
+``ModuleNotFoundError``.
 """
 
 from .acceptor import Acceptor

@@ -304,3 +304,66 @@ def test_elastic_phase_rejects_a_changed_restore(monkeypatch):
     monkeypatch.setattr(checkpoint, "restore", restore_off)
     with pytest.raises(AssertionError, match="restored tensors differ"):
         elastic_smoke()
+
+
+def tooling_inputs(monkeypatch):
+    """Phase 7's inputs at the smoke sizes on the CPU: stablelm's and
+    mamba2's smoke models served on the CPU, their live parameters and
+    prefill-built decode state, the 8-layer smoke training state, and
+    profiled windows whose launches are what ``SLICES`` says."""
+    import repro_torch.configs as configs
+    from repro_torch.serve import make_prefill_step
+    from repro_torch.train import OptConfig, init_state
+
+    monkeypatch.setattr(configs, "get_config", configs.get_smoke_config)
+    paths = {}
+    for arch, prompt in [("stablelm_12b", 12), ("mamba2_2p7b", 16)]:
+        cfg = get_smoke_config(arch).replace(**smoke.SLICES[arch].get("cut", {}))
+        model = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, prompt), generator=torch.Generator())
+        _, state = make_prefill_step(model, prompt + 5)({"tokens": tokens})
+        windows = {label: dict(device_launches=smoke.window_launches(smoke.SLICES[arch], label, n),
+                               host_launches=smoke.window_launches(smoke.SLICES[arch], label, n),
+                               steps=n)
+                   for label, n in [("prefill", 1), ("decode", 8)]}
+        live = dict(params=smoke.tree_bytes(dict(model.named_parameters())),
+                    decode_state=smoke.tree_bytes(state), max_len=prompt + 5,
+                    allocated_after_init=0, peak_allocated=0)
+        paths[arch] = ({}, {}, dict(profile=windows, live_bytes=live, batch=2,
+                                    decode_ms_per_step=1.0))
+    cfg = get_smoke_config(smoke.TRAIN["arch"]).replace(**smoke.TRAIN["cut"])
+    state = init_state(cfg, OptConfig(**smoke.TRAIN_OPT), torch.Generator(), device="cpu")
+    train = dict(peak_gb=0.0, live_bytes=dict(
+        params=smoke.tree_bytes(dict(state.params.named_parameters())),
+        optimizer=smoke.tree_bytes((state.opt, state.step)), allocated_after_init=0))
+    return paths, train
+
+
+def test_tooling_phase_on_cpu(monkeypatch):
+    """Phase 7 on the CPU: the dry-run's one-device bytes equal the live
+    tensors, the launches hold, and the decode step's roofline is counted."""
+    paths, train = tooling_inputs(monkeypatch)
+    out = smoke.tooling_phase("CPU", paths, train)
+    assert out["launches"]["stablelm_12b decode"]["flash_decode"] == 40 * 8
+    assert out["launches"]["mamba2_2p7b prefill"]["ssd_intra_chunk"] == 64
+    assert out["bytes"]["train"]["live_optimizer"] == 2 * out["bytes"]["train"]["live_params"] + 8
+    roof = out["decode_roofline"]
+    assert roof["flops"] > 0 and roof["dominant"] == "memory_s"
+    # the decode step reads every weight once at least
+    assert roof["bytes"] >= paths["stablelm_12b"][2]["live_bytes"]["params"]
+
+
+@pytest.mark.parametrize("fault", ["device", "host", "params", "decode_state", "optimizer"])
+def test_tooling_phase_rejects(monkeypatch, fault):
+    paths, train = tooling_inputs(monkeypatch)
+    rates = paths["stablelm_12b"][2]
+    if fault == "device":  # one decode step's kernel missing from the trace
+        rates["profile"]["decode"]["device_launches"]["flash_decode"] -= 1
+    elif fault == "host":
+        rates["profile"]["prefill"]["host_launches"]["flash_prefill"] += 1
+    elif fault == "optimizer":
+        train["live_bytes"]["optimizer"] += 4
+    else:
+        rates["live_bytes"][fault] += 2
+    with pytest.raises(AssertionError, match="launches|bytes"):
+        smoke.tooling_phase("CPU", paths, train)

@@ -1,6 +1,6 @@
 """The port's consensus core is the reference's, byte for byte.
 
-* Each of the 14 modules of ``repro_torch/core`` equals its source in
+* Each of the 15 modules of ``repro_torch/core`` equals its source in
   ``repro/core``.
 * ``repro_torch/coord/{control_plane,failure}.py`` equal their sources with
   ``repro.core`` / ``repro.coord`` read as ``repro_torch.core`` /
@@ -17,7 +17,7 @@ from repro_torch.core import deploy
 
 ROOT = Path(__file__).resolve().parents[1]
 CORE = ["messages", "quorums", "rounds", "runtime", "sim", "acceptor", "oracle", "proposer",
-        "log", "replica", "client", "matchmaker", "mm_reconfig", "deploy"]
+        "log", "replica", "client", "matchmaker", "mm_reconfig", "deploy", "wire"]
 
 
 @pytest.mark.parametrize("name", CORE)
