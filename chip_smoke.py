@@ -67,6 +67,22 @@ Phases, each of which fails the run on any fault:
    printed beside the allocator's readings; (c) the roofline of stablelm's
    decode step from ``trace_analysis.count``, beside its measured ms/step.
    The H100's constants (bounds, peaks, L2) are ``launch.mesh``'s.
+8. Testbed (``repro_torch.core``): (a) the 8-layer stablelm of phase 5
+   trained by ``ElasticTrainer`` with the heartbeat failure detector and a
+   nemesis schedule on the control plane: a partition of the detector from
+   pod1's acceptors shorter than the confirmation window, a heal, then a
+   kill -9 of pod1's acceptors; gates: no failover or epoch before the
+   crash, exactly one failover (pod1 to the spare pod3) in the step the
+   reckoning beside ``FAILOVER`` gives, the trainer's pods those of the
+   ledger, no stall, safety and no nemesis violation, the activation,
+   falling losses, no kernel launch, and the failover's step and the next
+   within ``STEP_RATIO_MAX`` of their epoch's median; readings: ms/step by
+   epoch, the detection delay in simulated ms and in steps, the control
+   plane's host ms a step, the nemesis event log.  (b) Every catalog
+   scenario on the simulator, one over TCP sockets and one over OS
+   processes (each worker's command line names ``repro_torch``), and the
+   model checker: single-decree with a crash budget of 2 complete and safe,
+   the mutant's violation found; wall seconds, slots chosen, states.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script exits with
 a non-zero code, and prints no result, when no CUDA device is present.
@@ -1457,6 +1473,17 @@ def state_sums(state):
     return dict(zip(names, sums.tolist()))
 
 
+def train_cut(phase):
+    """``TRAIN``'s model at its published widths, cut in depth as phase 5
+    cuts it; raises (naming ``phase``) where the widths are not published."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN["arch"]).replace(**TRAIN["cut"])
+    if {k: getattr(cfg, k) for k in TRAIN["widths"]} != TRAIN["widths"]:
+        raise AssertionError(f"{phase}: {cfg.arch_id} is not at its published widths")
+    return cfg
+
+
 def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["seq_len"],
                   global_batch=TRAIN["global_batch"], opt=TRAIN_OPT):
     """Trains ``cfg`` (by default stablelm-12b at its published widths, cut
@@ -1467,7 +1494,6 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
     import tempfile
     from collections import Counter
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.coord import ElasticConfig, ElasticTrainer
     from repro_torch.kernels import ops
     from repro_torch.train import OptConfig
@@ -1478,10 +1504,7 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
             torch.cuda.synchronize()
 
     if cfg is None:
-        cfg = get_config(TRAIN["arch"]).replace(**TRAIN["cut"])
-        widths = {k: getattr(cfg, k) for k in TRAIN["widths"]}
-        if widths != TRAIN["widths"]:
-            raise AssertionError(f"elastic: {cfg.arch_id} is not at its published widths")
+        cfg = train_cut("elastic")
     want = elastic_expected(spec)
     launches, shapes = dict(ops.LAUNCHES), Counter(ops.LAUNCH_SHAPES)
     with tempfile.TemporaryDirectory() as ckpt_dir:
@@ -1744,6 +1767,311 @@ def tooling_phase(card, paths, train, spec=TRAIN):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the consensus testbed (the port's core/: the nemesis, the
+# heartbeat detector's failover into training, the scenarios over the
+# simulator, TCP sockets and OS processes, the model checker)
+# ---------------------------------------------------------------------------
+# (a) stablelm-12b as phases 5 and 6 train it, under ElasticTrainer with the
+# heartbeat detector at the reference's default timings (a probe every
+# 0.02 s, silence past 0.08 s a miss, 2 misses a suspicion; pod3 the spare)
+# and a nemesis schedule on the control plane's simulated clock: the
+# detector cut off from pod1's acceptors from 0.0805 s to 0.1605 s, then
+# pod1's acceptors killed (kill -9) at 0.1805 s.  No checkpoint: phase 6
+# measures one, and a second 39 GB save would cost ~140 s.
+#
+# The reckoning, on the simulated clock (seeded, so both packages and every
+# machine run it alike).  The controller's clock stands at 0.051 s when the
+# trainer is built, and the detector, attached then, probes at 0.051 +
+# 0.02 k.  A step runs the clock 0.002 s, each fifth step's StepRecord
+# commit ~0.001 s more, so step k ends near 0.051 + 0.0022 k.  The
+# partition: the last pong before it answers the probe of 0.071; those of
+# 0.091 to 0.151 are cut, and the probe of 0.171 (after the heal, in step
+# 55) finds 0.0999 s of silence: one miss, the partition guard.  Its pong
+# resets the count before a second miss, so nothing is suspected.  The
+# crash lands in step 60 (0.180 to 0.183); the last pong answers the probe
+# of 0.171, the probes of 0.271 and 0.291 find 0.0999 and 0.1199 s of
+# silence: two misses, pod1 suspected at 0.291, pod3 in its place, the new
+# configuration active at 0.292 (1 simulated ms, under ACTIVATION_MS_MAX).
+# By the clock alone the steps reach 0.291 at step ~109 (with
+# Options(thrifty=False) the failover lands in step 110); but a StepRecord
+# whose thrifty Phase-2 quorum (2 of the 3 acceptors, drawn from the seeded
+# RNG) holds a dead acceptor waits for the failover.  Step 60's and 65's
+# quorums miss pod1's acceptor and step 70's holds it, so step 70's commit
+# runs the clock from 0.202 to 0.293: the failover and the ledger's epoch 1
+# land in step 70, 110.5 simulated ms and 10 steps after the crash.  Twenty
+# steps follow in epoch 1.
+FAILOVER = dict(pods=("pod0", "pod1", "pod2"), spare="pod3", victim="pod1", commit_every=5,
+                partition=(0.0805, 0.1605), crash_at=0.1805, steps=90,
+                crash_step=60, failover_step=70, partition_guard_hits=1)
+# The wall of the failover's step against its epoch's median, and of the step
+# after it against the new epoch's.  Phase 6 on the H100 read the steps right
+# after a change at 0.994 to 1.011 of their epoch's median over its runs,
+# and one step of twenty at 1.016; the failover step adds the control
+# plane's work for ~91 simulated ms (1.6 to 2.2 host ms on a CPU core,
+# 0.6% of a 365 ms step).  5% is three times the farthest step seen.
+STEP_RATIO_MAX = 1.05
+
+
+def failover_schedule(nemesis, controller, spec=FAILOVER):
+    """``spec``'s schedule, from the classes of ``nemesis`` (the port's
+    ``core.nemesis`` or, in the tests, the reference's)."""
+    victims = tuple(controller.pods[spec["victim"]].acceptor_addrs)
+    t0, t1 = spec["partition"]
+    return nemesis.Schedule("elastic_failover", 0, (
+        nemesis.Event(t0, nemesis.Partition(("detector",), victims)),
+        nemesis.Event(t1, nemesis.Heal()),
+        *(nemesis.Event(spec["crash_at"], nemesis.Crash(a, clean=False)) for a in victims)))
+
+
+def failover_gates(out, spec=FAILOVER, timed=True):
+    """The gates of phase 8 (a) over its readings; returns the faults."""
+    faults, rows = [], out["steps"]
+    before_crash = [r for r in rows if r["sim_now"] < spec["crash_at"]]
+    if any(r["failovers"] or r["ledger_epoch"] for r in before_crash):
+        faults.append("a failover or an epoch before the crash")
+    if before_crash[-1]["guard_hits"] != spec["partition_guard_hits"]:
+        faults.append(f"partition guard hits {before_crash[-1]['guard_hits']}")
+    if [(e["suspected"], e["replacement"]) for e in out["failover_log"]] != [
+            (spec["victim"], spec["spare"])]:
+        faults.append(f"failovers {out['failover_log']}")
+    decided = next((r["step"] for r in rows if r["ledger_epoch"] == 1), None)
+    want = [dict(step=0, pods=list(spec["pods"])),
+            dict(step=decided, pods=list(out["membership"][1]))]
+    if (out["remesh"] != want or out["pods"] != list(out["membership"][1])
+            or out["membership"][0] != 1 or decided != spec["failover_step"]
+            or out["crash_step"] != spec["crash_step"]):
+        faults.append(f"remesh {out['remesh']}, ledger {out['membership']} decided at step "
+                      f"{decided}, crash in step {out['crash_step']}")
+    if out["stall_count"] != 0:
+        faults.append(f"stall_count {out['stall_count']}")
+    if out["violations"]:
+        faults.append(f"nemesis violations {out['violations']}")
+    if not out["failover_log"] or not all(
+            e["activation_ms"] < ACTIVATION_MS_MAX for e in out["failover_log"]):
+        faults.append(f"activation {[e.get('activation_ms') for e in out['failover_log']]}")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        faults.append(f"losses {losses}")
+    if out["launched"]:
+        faults.append(f"kernels launched: {out['launched']}")
+    if timed:
+        for s in out["around_failover"]:
+            if s["ratio"] > STEP_RATIO_MAX:
+                faults.append(f"step {s['step']}: {s['ms']:.2f} ms, {s['ratio']:.3f} of its "
+                              f"epoch's median (gate {STEP_RATIO_MAX})")
+    return faults
+
+
+def failover_phase(card, spec=FAILOVER, device="cuda", cfg=None, seq_len=TRAIN["seq_len"],
+                   global_batch=TRAIN["global_batch"], opt=TRAIN_OPT):
+    """Trains ``cfg`` (by default stablelm-12b at its published widths, cut
+    as phase 5 cuts it) under the control plane with the failure detector
+    and ``spec``'s nemesis schedule; raises unless every gate of
+    ``failover_gates`` holds (the step times on CUDA only).  Returns the
+    readings."""
+    import gc
+    import statistics
+    import tempfile
+    from collections import Counter
+    import torch
+    from repro_torch.coord import ElasticConfig, ElasticTrainer
+    from repro_torch.core import nemesis
+    from repro_torch.kernels import ops
+    from repro_torch.train import OptConfig
+    from repro_torch.train.data import DataConfig
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:  # phase 6's trainer (its step peaks at 61 GB) lives in a cycle
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"failover: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before the "
+            f"trainer [{card}]")
+    if cfg is None:
+        cfg = train_cut("failover")
+    launches, shapes = dict(ops.LAUNCHES), Counter(ops.LAUNCH_SHAPES)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.perf_counter()
+        tr = ElasticTrainer(
+            cfg, OptConfig(**opt),
+            DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch),
+            pods=list(spec["pods"]), device=device,
+            ecfg=ElasticConfig(checkpoint_dir=ckpt_dir, commit_every=spec["commit_every"],
+                               checkpoint_every=spec["steps"] + 1))
+        ctrl = tr.controller
+        det = ctrl.attach_detector(spares=[spec["spare"]])
+        nem = ctrl.dep.attach_nemesis(failover_schedule(nemesis, ctrl, spec))
+        log(f"failover: {cfg.arch_id} {cfg.n_layers} layers, trainer built in "
+            f"{time.perf_counter() - t0:.1f} s [{card}]; detector ping {det.ping_interval} s, "
+            f"suspect after {det.suspect_after} s, {det.confirm_misses} misses; schedule "
+            f"{nem.schedule!r}")
+        clock = HostClock()
+        clock.wrap(ctrl.sim, "run_for")
+        clock.wrap(ctrl, "commit")
+        rows = []
+        for _ in range(spec["steps"]):
+            epoch, clock.ms = tr.epoch, 0.0
+            t0 = time.perf_counter()
+            tr.run(1)
+            rows.append(dict(step=tr.step, epoch=epoch, loss=tr.losses[-1],
+                             ms=(time.perf_counter() - t0) * 1e3, control_ms=clock.ms,
+                             sim_now=ctrl.sim.now, ledger_epoch=ctrl.membership()[0],
+                             failovers=len(ctrl.failover_log),
+                             guard_hits=det.false_positive_guard_hits))
+        ctrl.check_safety()
+        out = dict(arch=cfg.arch_id, n_layers=cfg.n_layers, card=card,
+                   failover_log=list(ctrl.failover_log), event_log=list(nem.event_log),
+                   violations=nem.final_check(), membership=ctrl.membership(),
+                   pods=list(tr.pods), stall_count=ctrl.dep.leader.stall_count,
+                   remesh=[dict(step=e["step"], pods=e["pods"]) for e in tr.events
+                           if e["t"] == "remesh"],
+                   crash_step=next(r["step"] for r in rows if r["sim_now"] >= spec["crash_at"]),
+                   launched={k: v - launches.get(k, 0) for k, v in ops.LAUNCHES.items()
+                             if v != launches.get(k, 0)}, steps=rows)
+        if Counter(ops.LAUNCH_SHAPES) != shapes:
+            out["launched"]["shapes"] = True
+        by_epoch = {}
+        for r in rows:
+            by_epoch.setdefault(r["epoch"], []).append(r["ms"])
+        medians = {e: statistics.median(ms) for e, ms in by_epoch.items()}
+        fo = out["remesh"][-1]["step"]  # rows[i] ran step i + 1
+        out.update(
+            ms_per_step_by_epoch=medians,
+            around_failover=[dict(step=r["step"], epoch=r["epoch"], ms=r["ms"],
+                                  control_ms=r["control_ms"],
+                                  epoch_median_ms=medians[r["epoch"]],
+                                  ratio=r["ms"] / medians[r["epoch"]])
+                             for r in rows[fo - 1:fo + 1]],
+            control_ms_per_step=statistics.median(r["control_ms"] for r in rows),
+            control_ms_max=max(r["control_ms"] for r in rows),
+            detection_sim_ms=(out["failover_log"][0]["reconfig_started"] - spec["crash_at"]) * 1e3
+            if out["failover_log"] else None,
+            detection_steps=fo - out["crash_step"])
+        if cuda:
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        faults = failover_gates(out, spec, timed=cuda)
+        log(f"failover: ms/step by epoch [{card}]:",
+            json.dumps({e: round(m, 2) for e, m in medians.items()}),
+            "; the failover's step and the next vs their epoch's median:",
+            json.dumps([[s["step"], round(s["ms"], 2), round(s["ratio"], 4)]
+                        for s in out["around_failover"]]), f"(gate {STEP_RATIO_MAX})")
+        log(f"failover: ms of each step [{card}]:", json.dumps([round(r["ms"], 2) for r in rows]))
+        log(f"failover: detection [{card}]: crash in step {out['crash_step']} at "
+            f"{spec['crash_at']} simulated s, {spec['victim']} suspected after "
+            f"{out['detection_sim_ms']:.3f} simulated ms, the ledger's epoch 1 in step {fo} "
+            f"({out['detection_steps']} steps later); partition guard hits "
+            f"{[r['guard_hits'] for r in rows if r['sim_now'] < spec['crash_at']][-1]}")
+        log(f"failover: control plane host ms per step [{card}]: median "
+            f"{out['control_ms_per_step']:.3f}, max {out['control_ms_max']:.3f} (step "
+            f"{max(rows, key=lambda r: r['control_ms'])['step']}), the failover's step "
+            f"{out['around_failover'][0]['control_ms']:.3f}")
+        log(f"failover: ledger [{card}]: membership {out['membership']}, trainer pods "
+            f"{out['pods']}, failover_log {json.dumps(out['failover_log'])}, stall_count "
+            f"{out['stall_count']}, violations {out['violations']}, remesh "
+            f"{json.dumps(out['remesh'])}, kernel launches {out['launched'] or 'none'}")
+        log(f"failover: nemesis event log [{card}]:", json.dumps(out["event_log"]))
+        log(f"failover: losses [{card}]:", json.dumps([round(r["loss"], 4) for r in rows]))
+        del tr, ctrl, det, nem
+    if faults:
+        raise AssertionError("failover: " + "; ".join(faults))
+    return out
+
+
+# (b) The testbed on the card's host.
+TESTBED_SCENARIO = "leader_kill9_mid_phase2"  # over TCP sockets and over OS processes
+TESTBED_TRANSPORTS = ("tcp", "proc")
+TESTBED_MC = dict(max_depth=30, fault_budget=2, faults=("crash", "restart"))
+
+
+def proc_cmdlines(proc):
+    """Wraps ``proc.Supervisor`` so that each live worker's command line is
+    read from ``/proc`` once the cluster is ready and again as it is shut
+    down (a respawned worker too); returns {pid: (addr, line)} and the undo.
+    A line read right after the spawn may still be empty."""
+    seen, ready, shutdown = {}, proc.Supervisor.wait_ready, proc.Supervisor.shutdown
+
+    def read(sup):
+        for addr, p in sup.procs.items():
+            if p.poll() is None:
+                with open(f"/proc/{p.pid}/cmdline", "rb") as f:
+                    seen[p.pid] = (addr, f.read().replace(b"\0", b" ").decode())
+
+    def reading_ready(self, *args, **kw):
+        ready(self, *args, **kw)
+        read(self)
+
+    def reading_shutdown(self, *args, **kw):
+        read(self)
+        return shutdown(self, *args, **kw)
+
+    proc.Supervisor.wait_ready, proc.Supervisor.shutdown = reading_ready, reading_shutdown
+
+    def undo():
+        proc.Supervisor.wait_ready, proc.Supervisor.shutdown = ready, shutdown
+
+    return seen, undo
+
+
+def testbed_phase(card):
+    """Every catalog scenario on the simulator, ``TESTBED_SCENARIO`` over
+    each of ``TESTBED_TRANSPORTS`` (over "proc" each worker's command line
+    must name ``repro_torch``), the model checker on single-decree with a crash
+    budget of 2 (complete and safe) and on the mutant (found).  Raises on
+    any fault; returns the readings."""
+    import repro_torch.core as rc
+    from repro_torch.core import mc, proc
+
+    out, faults = dict(card=card, scenarios=[]), []
+    for name in rc.SCENARIO_NAMES:
+        t0 = time.perf_counter()
+        r = rc.run_scenario(name, 0, transport="sim")
+        out["scenarios"].append(dict(name=name, transport="sim", s=time.perf_counter() - t0,
+                                     chosen=r.chosen_slots, completed=r.completed_commands,
+                                     safe=r.safe))
+        r.raise_if_unsafe(shrink=False)
+    cmdlines, undo = proc_cmdlines(proc)
+    try:
+        for transport in TESTBED_TRANSPORTS:
+            t0 = time.perf_counter()
+            r = rc.run_scenario(TESTBED_SCENARIO, 0, transport=transport)
+            out["scenarios"].append(dict(
+                name=TESTBED_SCENARIO, transport=transport, s=time.perf_counter() - t0,
+                chosen=r.chosen_slots, completed=r.completed_commands, safe=r.safe,
+                events=len(r.event_log)))
+            r.raise_if_unsafe(shrink=False)
+            if not r.completed_commands:
+                faults.append(f"{TESTBED_SCENARIO} over {transport}: no command completed")
+    finally:
+        undo()
+    out["workers"] = len(cmdlines)
+    wrong = [(a, c) for a, c in cmdlines.values()
+             if "from repro_torch.core.proc import" not in c or "repro.co" in c]
+    if ("proc" in TESTBED_TRANSPORTS and not cmdlines) or wrong:
+        faults.append(f"proc workers' command lines: {wrong or 'none read'}")
+    for family, bounds, expect in [("single_decree", TESTBED_MC, False),
+                                   ("single_decree_mutated", dict(max_depth=30), True)]:
+        res = mc.explore(family, mc.MCConfig(**bounds))
+        out.setdefault("mc", []).append(dict(
+            family=family, bounds=bounds, states=res.states, transitions=res.transitions,
+            terminals=res.terminals, complete=res.complete, found=res.violation is not None,
+            s=res.wall))
+        if (res.violation is not None) != expect or (not expect and not res.complete):
+            faults.append(f"mc {family}: complete {res.complete}, violation {res.violation}")
+    for s in out["scenarios"]:
+        log(f"testbed: {s['name']} over {s['transport']} [{card}]: {s['s']:.2f} s, "
+            f"{s['chosen']} slots chosen, {s['completed']} commands completed, safe {s['safe']}")
+    log(f"testbed: {out['workers']} proc workers read, each command line "
+        f"{next(iter(cmdlines.values()))[1] if cmdlines else None!r}")
+    for m in out["mc"]:
+        log(f"testbed: mc {m['family']} {json.dumps(m['bounds'])} [{card}]: {m['s']:.2f} s, "
+            f"{m['states']} states, {m['transitions']} transitions, {m['terminals']} "
+            f"terminals, complete {m['complete']}, violation found {m['found']}")
+    if faults:
+        raise AssertionError("testbed: " + "; ".join(faults))
+    return out
+
+
 KERNELS = {
     "flash_prefill": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -1819,6 +2147,10 @@ def main() -> int:
     train = train_phase(card)
     elastic = elastic_phase(card)
     tooling = tooling_phase(card, paths, train)
+    t0 = time.perf_counter()
+    failover = failover_phase(card)
+    testbed = testbed_phase(card)
+    testbed_s = time.perf_counter() - t0
     log(card)
     for arch, (_, _, rates) in paths.items():
         log(f"rates {arch} [{card}]: prefill {rates['prefill_ms']:.2f} ms "
@@ -1840,6 +2172,15 @@ def main() -> int:
         f"{elastic['restore_s']:.1f} s, stall_count {elastic['stall_count']}")
     log("elastic rates:", json.dumps(elastic))
     log("tooling:", json.dumps(tooling))
+    log(f"failover rates {failover['arch']} ({failover['n_layers']} layers) [{card}]: ms/step "
+        f"by epoch {json.dumps({e: round(m, 2) for e, m in failover['ms_per_step_by_epoch'].items()})}"
+        f", the failover's step and the next at "
+        f"{json.dumps([round(s['ratio'], 4) for s in failover['around_failover']])} of their "
+        f"epoch's median, detection {failover['detection_sim_ms']:.3f} simulated ms "
+        f"({failover['detection_steps']} steps), control plane "
+        f"{failover['control_ms_per_step']:.3f} ms a step; phase 8 took {testbed_s:.1f} s")
+    log("failover rates:", json.dumps(failover))
+    log("testbed:", json.dumps(testbed))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

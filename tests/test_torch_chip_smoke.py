@@ -18,8 +18,14 @@
   matches a saved state and fits the machine; the room check raises when
   short; the phase runs its gates at the smoke size on the CPU and rejects a
   restore that does not bring the saved tensors back.
+* Phase 8: the failover phase runs on the CPU at the smoke size and lands
+  where ``FAILOVER``'s reckoning says (the partition guard hit once, the
+  crash in step 60, pod1 replaced by pod3 in step 70, 110.5 simulated ms
+  later); its gates reject each fault put into its readings; the testbed
+  phase runs the catalog, a TCP scenario and the model checker.
 """
 
+import copy
 import importlib.util
 from collections import Counter
 from pathlib import Path
@@ -367,3 +373,103 @@ def test_tooling_phase_rejects(monkeypatch, fault):
         rates["live_bytes"][fault] += 2
     with pytest.raises(AssertionError, match="launches|bytes"):
         smoke.tooling_phase("CPU", paths, train)
+
+
+@pytest.fixture(scope="module")
+def failover_cpu():
+    # 90 small steps: with torch's default threads, each of them contends
+    # with the other test workers' (110 s against 3.7 s on one thread, on a
+    # loaded 8-core host)
+    cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return smoke.failover_phase("CPU", device="cpu", cfg=cfg, seq_len=32,
+                                    opt=dict(lr=3e-3, warmup_steps=5))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_failover_phase_on_cpu(failover_cpu):
+    out, spec = failover_cpu, smoke.FAILOVER
+    assert spec["partition"][1] < spec["crash_at"] and len(out["steps"]) == spec["steps"]
+    assert out["crash_step"] == spec["crash_step"] == 60
+    assert [r["step"] for r in out["around_failover"]] == [70, 71]
+    assert out["remesh"] == [dict(step=0, pods=["pod0", "pod1", "pod2"]),
+                             dict(step=70, pods=["pod0", "pod2", "pod3"])]
+    assert out["membership"] == (1, ("pod0", "pod2", "pod3"))
+    assert out["detection_sim_ms"] == pytest.approx(110.5)
+    assert out["detection_steps"] == 10
+    assert out["failover_log"][0]["activation_ms"] == pytest.approx(1.0)
+    # steps 54 and 55: the probe of 0.171 (in step 55) finds the partition's silence
+    assert [r["guard_hits"] for r in out["steps"]][53:55] == [0, 1]
+    assert len(out["event_log"]) == 5 and out["violations"] == [] and not out["launched"]
+    assert set(out["ms_per_step_by_epoch"]) == {0, 1}
+    assert smoke.failover_gates(out, timed=False) == []
+
+
+def slow_failover_step(out):
+    out["around_failover"][0]["ratio"] = smoke.STEP_RATIO_MAX + 0.01
+
+
+def early_epoch(out):
+    out["steps"][30]["ledger_epoch"] = 1
+
+
+def second_failover(out):
+    out["failover_log"].append(dict(out["failover_log"][0], suspected="pod2"))
+
+
+def no_guard_hit(out):
+    for r in out["steps"]:
+        r["guard_hits"] = 0
+
+
+def other_step(out):
+    out["remesh"][1]["step"] += 1
+
+
+def rising_loss(out):
+    out["steps"][-1]["loss"] = out["steps"][0]["loss"] + 1
+
+
+def launched(out):
+    out["launched"] = {"flash_prefill": 1}
+
+
+def slow_activation(out):
+    out["failover_log"][0]["activation_ms"] = smoke.ACTIVATION_MS_MAX
+
+
+def stalled(out):
+    out["stall_count"] = 1
+
+
+def violated(out):
+    out["violations"] = ["final: oracle: two values"]
+
+
+@pytest.mark.parametrize("fault", [slow_failover_step, early_epoch, second_failover,
+                                   no_guard_hit, other_step, rising_loss, launched,
+                                   slow_activation, stalled, violated],
+                         ids=lambda f: f.__name__)
+def test_failover_gates_reject(failover_cpu, fault):
+    out = copy.deepcopy(failover_cpu)
+    fault(out)
+    assert smoke.failover_gates(out, timed=True)
+
+
+def test_testbed_phase_on_cpu(monkeypatch):
+    """Phase 8 (b) without its process cluster (tests/test_torch_proc.py
+    runs one): the catalog on the simulator, the TCP scenario, the model
+    checker."""
+    monkeypatch.setattr(smoke, "TESTBED_TRANSPORTS", ("tcp",))
+    out = smoke.testbed_phase("CPU")
+    import repro_torch.core as rc
+
+    assert [s["name"] for s in out["scenarios"]] == [*rc.SCENARIO_NAMES, smoke.TESTBED_SCENARIO]
+    assert all(s["safe"] and s["chosen"] > 0 for s in out["scenarios"])
+    assert out["workers"] == 0
+    sd, mutant = out["mc"]
+    assert (sd["states"], sd["complete"], sd["found"]) == (796, True, False)
+    assert mutant["found"]

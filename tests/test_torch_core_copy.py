@@ -1,11 +1,14 @@
 """The port's consensus core is the reference's, byte for byte.
 
-* Each of the 15 modules of ``repro_torch/core`` equals its source in
-  ``repro/core``.
-* ``repro_torch/coord/{control_plane,failure}.py`` equal their sources with
-  ``repro.core`` / ``repro.coord`` read as ``repro_torch.core`` /
-  ``repro_torch.coord``, and differ in nothing else.
-* The transports that are not copied raise when asked for.
+* Each module of ``repro_torch/core`` but ``proc`` equals its source in
+  ``repro/core``, ``__init__`` included, and the two packages hold the
+  same modules.
+* ``repro_torch/core/proc.py``, ``repro_torch/mc.py`` and
+  ``repro_torch/coord/{control_plane,failure}.py`` equal their sources with
+  ``repro.core`` / ``repro.coord`` / ``repro.mc`` read as
+  ``repro_torch.core`` / ``repro_torch.coord`` / ``repro_torch.mc``, and
+  differ in nothing else.
+* Each transport backend builds the port's own class.
 """
 
 import re
@@ -13,11 +16,14 @@ from pathlib import Path
 
 import pytest
 
+import repro_torch.core as core
 from repro_torch.core import deploy
 
 ROOT = Path(__file__).resolve().parents[1]
 CORE = ["messages", "quorums", "rounds", "runtime", "sim", "acceptor", "oracle", "proposer",
-        "log", "replica", "client", "matchmaker", "mm_reconfig", "deploy", "wire"]
+        "log", "replica", "client", "matchmaker", "mm_reconfig", "deploy", "wire",
+        "nemesis", "single", "fast_paxos", "horizontal", "net", "tcp", "scenarios", "mc",
+        "__init__"]
 
 
 @pytest.mark.parametrize("name", CORE)
@@ -28,22 +34,37 @@ def test_core_module_is_a_byte_copy(name):
 
 
 def test_core_holds_only_the_copies():
-    names = {p.stem for p in (ROOT / "src/repro_torch/core").glob("*.py")}
-    assert names == set(CORE) | {"__init__"}
+    def names(pkg):
+        return {p.stem for p in (ROOT / "src" / pkg / "core").glob("*.py")}
+
+    assert names("repro_torch") == names("repro") == set(CORE) | {"proc"}
 
 
-@pytest.mark.parametrize("name", ["control_plane", "failure"])
-def test_coord_module_is_a_renamed_copy(name):
-    mine = (ROOT / "src/repro_torch/coord" / f"{name}.py").read_text()
-    theirs = (ROOT / "src/repro/coord" / f"{name}.py").read_text()
-    renamed = re.sub(r"\brepro\.(core|coord)\b", r"repro_torch.\1", theirs)
-    assert renamed != theirs  # the source does import the core
+def check_renamed_copy(path):
+    mine = (ROOT / "src/repro_torch" / f"{path}.py").read_text()
+    theirs = (ROOT / "src/repro" / f"{path}.py").read_text()
+    renamed = re.sub(r"\brepro\.(core|coord|mc)\b", r"repro_torch.\1", theirs)
+    assert renamed != theirs  # the source does name the package
     assert mine == renamed
     assert not re.search(r"\brepro\.", mine)
 
 
-@pytest.mark.parametrize("backend", ["async", "tcp", "proc"])
-def test_uncopied_transports_raise(backend):
-    with pytest.raises(ModuleNotFoundError):
-        deploy.make_transport(backend)
+@pytest.mark.parametrize("name", ["control_plane", "failure"])
+def test_coord_module_is_a_renamed_copy(name):
+    check_renamed_copy(f"coord/{name}")
+
+
+@pytest.mark.parametrize("path", ["core/proc", "mc"])
+def test_module_is_a_renamed_copy(path):
+    check_renamed_copy(path)
+
+
+@pytest.mark.parametrize("backend,cls", [("async", "AsyncTransport"), ("tcp", "TcpTransport"),
+                                         ("proc", "ProcTransport")])
+def test_transports_are_the_ports(backend, cls):
+    t = deploy.make_transport(backend)
+    assert type(t) is getattr(core, cls)
+    assert type(t).__module__.startswith("repro_torch.core.")
+    if backend == "proc":
+        assert t.workdir.exists()
     assert deploy.make_transport("sim").now == 0.0

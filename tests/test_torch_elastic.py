@@ -7,7 +7,10 @@ must give equal events, equal ledgers (a checkpoint commit compared by its
 step, each digest checked against its own manifest: the two packages'
 masters part in the last bits, so their npz bytes differ), equal epochs,
 pods, stall counts and durable steps, and losses within ``LOSS_RTOL``.
-Then: the durable-step guard refuses, in both, a manifest that was saved
+Then: ``chip_smoke.py`` phase 8's nemesis schedule (the detector
+partitioned from pod1's acceptors, healed, then pod1's acceptors killed)
+drives the same single failover, in the same step, through both trainers;
+the durable-step guard refuses, in both, a manifest that was saved
 and not committed; the port restores the JAX trainer's committed
 checkpoint and its state equals JAX's at that step; the train launcher
 and the example run on the CPU.
@@ -29,11 +32,13 @@ from repro import train as jtrain
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.coord import ElasticConfig as JaxElasticConfig
 from repro.coord import ElasticTrainer as JaxElasticTrainer
+from repro.core import nemesis as jax_nemesis
 from repro.launch import train as jax_launch_train
 from repro.train import OptConfig as JaxOptConfig
 from repro.train.data import DataConfig as JaxDataConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.coord import ElasticConfig, ElasticTrainer
+from repro_torch.core import nemesis
 from repro_torch.launch import train as launch_train
 from repro_torch.train import OptConfig, checkpoint
 from repro_torch.train.data import DataConfig
@@ -154,6 +159,28 @@ def test_trainer_matches_reference(tmp_path, schedule):
         ptr.ecfg.checkpoint_dir = jtr.ecfg.checkpoint_dir
         assert ptr.restore_latest() and ptr.step == 16
         state_equals(ptr, snapshot)
+
+
+def test_nemesis_failover_matches_reference(tmp_path):
+    spec = smoke.FAILOVER
+    jtr, ptr = make_pair(tmp_path, spec["pods"], checkpoint_every=10 ** 6,
+                         commit_every=spec["commit_every"])
+    nems = []
+    for tr, plane in ((jtr, jax_nemesis), (ptr, nemesis)):
+        tr.controller.attach_detector(spares=[spec["spare"]])
+        nems.append(tr.controller.dep.attach_nemesis(
+            smoke.failover_schedule(plane, tr.controller, spec)))
+        tr.run(spec["failover_step"] + 5)
+    check_same(jtr, ptr)
+    jnem, nem = nems
+    assert nem.event_log == jnem.event_log and len(nem.event_log) == 5
+    assert nem.final_check() == jnem.final_check() == []
+    assert ptr.controller.failover_log == jtr.controller.failover_log
+    assert [(e["suspected"], e["replacement"]) for e in ptr.controller.failover_log] == [
+        (spec["victim"], spec["spare"])]
+    remesh = [(e["step"], tuple(e["pods"])) for e in ptr.events if e["t"] == "remesh"]
+    assert remesh == [(0, spec["pods"]), (spec["failover_step"], ("pod0", "pod2", "pod3"))]
+    assert ptr.controller.membership() == (1, ("pod0", "pod2", "pod3"))
 
 
 def test_durable_step_guard(tmp_path):
