@@ -83,6 +83,18 @@ Phases, each of which fails the run on any fault:
    processes (each worker's command line names ``repro_torch``), and the
    model checker: single-decree with a crash budget of 2 complete and safe,
    the mutant's violation found; wall seconds, slots chosen, states.
+9. The mesh path (``models/sharding.py`` under ``set_mesh``, the train step
+   on DTensors, ``ElasticTrainer`` on a (pod, data) mesh) on a one-rank
+   NCCL group (NCCL takes one rank a card; the multi-rank behaviour is held
+   on gloo ranks on the CPU by tests/test_torch_multidevice.py): (a) phase
+   5's model under the fsdp training policy, ten steps with ``grad_specs``
+   on a (1, 1, 1) (pod, data, model) mesh against the same steps with no
+   mesh (losses within 1e-6 relative, each step a descent, no kernel
+   launch), ms/step beside the no-mesh step's, peak memory and the device's
+   busy share of a profiled step; (b) ``ElasticTrainer`` with
+   ``devices_per_pod=1`` on a (1, 1) mesh, scaled from one pod to two
+   (logical pods on one rank), against a trainer with no process group:
+   the same events, no stall, losses within 1e-6 relative.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script exits with
 a non-zero code, and prints no result, when no CUDA device is present.
@@ -2072,6 +2084,207 @@ def testbed_phase(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the mesh path (``models/sharding.py`` under ``set_mesh``, the
+# train step on DTensors, ``ElasticTrainer`` on a (pod, data) mesh) on a
+# one-rank NCCL group: NCCL refuses two ranks on one card, so the card runs
+# the mesh path at world size 1, and its multi-rank behaviour is held on
+# gloo ranks on the CPU (tests/test_torch_multidevice.py).
+# ---------------------------------------------------------------------------
+# (a) phase 5's model (published widths, 8 of 40 layers), batch and
+# OptConfig under the training policy (fsdp), ten steps on a (1, 1, 1)
+# (pod, data, model) mesh with grad_specs, against the same ten steps with
+# no mesh under the same policy from the same masters.  A one-rank mesh
+# runs the same local ops in the same order (its redistributions move
+# nothing), so the losses are expected bit-equal: held within 1e-6
+# relative, the largest difference printed.  (b) ElasticTrainer with
+# devices_per_pod 1: one pod on a (1, 1) (pod, data) mesh for MESH["steps_b"]
+# steps, then a scale-up to two pods, which collapses to logical pods (one
+# rank, two pods) as the reference's single-device run, and as many steps
+# again; against a trainer with no process group, the same gate.
+MESH = dict(steps=10, steps_b=5, pods=("pod0",), scale_to=("pod0", "pod1"))
+MESH_LOSS_RTOL = 1e-6
+
+
+def init_group(device):
+    """A one-rank process group on an in-memory store: NCCL on CUDA, gloo
+    on the CPU."""
+    import torch.distributed as dist
+
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return backend
+
+
+def elastic_losses(cfg, ocfg, spec, device, seq_len, global_batch, **ecfg):
+    """``spec``'s schedule through ElasticTrainer (on a mesh where a process
+    group exists): losses, the remesh events, the mesh shapes, the stall
+    count, each step's ms."""
+    import tempfile
+    from repro_torch.coord import ElasticConfig, ElasticTrainer
+    from repro_torch.train.data import DataConfig
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        n = 2 * spec["steps_b"]
+        tr = ElasticTrainer(
+            cfg, ocfg, DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch),
+            pods=list(spec["pods"]), device=device,
+            ecfg=ElasticConfig(checkpoint_dir=ckpt_dir, checkpoint_every=n + 1, commit_every=5,
+                               **ecfg))
+        shapes, ms = [tuple(tr.mesh.shape) if tr.mesh is not None else None], []
+        for i in range(n):
+            if i == spec["steps_b"]:
+                tr.scale_to(list(spec["scale_to"]))
+            t0 = time.perf_counter()
+            tr.run(1)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            shapes.append(tuple(tr.mesh.shape) if tr.mesh is not None else None)
+        tr.controller.check_safety()
+        out = dict(losses=list(tr.losses), stall_count=tr.controller.dep.leader.stall_count,
+                   remesh=[dict(step=e["step"], pods=e["pods"], devices=e["devices"])
+                           for e in tr.events if e["t"] == "remesh"],
+                   shapes=sorted(set(shapes), key=shapes.index), ms=ms, pods=list(tr.pods))
+        del tr
+    return out
+
+
+def mesh_phase(card, spec=MESH, device="cuda", cfg=None, seq_len=TRAIN["seq_len"],
+               global_batch=TRAIN["global_batch"], opt=TRAIN_OPT):
+    """Gates (a) and (b) of phase 9 on ``cfg`` (by default phase 5's model at
+    its published widths); raises unless each holds.  Returns the readings."""
+    import gc
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.coord.elastic import state_specs
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharding import (axis_sizes, batch_spec, place, policy_for,
+                                             set_mesh, whole)
+    from repro_torch.train import OptConfig, init_state, make_train_step
+    from repro_torch.train.data import DataConfig, TokenPipeline
+    from repro_torch.train.train_loop import make_loss_fn, place_state
+
+    cuda = torch.device(device).type == "cuda"
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    t_phase = time.perf_counter()
+    free()
+    launches = dict(ops.LAUNCHES)
+    if cfg is None:
+        cfg = train_cut("mesh")
+    policy = policy_for(cfg, "train")
+    cfg = cfg.replace(sharding_policy=policy)
+    ocfg = OptConfig(**opt)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch))
+    batches = [pipe.torch_batch_at(i, device=device) for i in range(spec["steps"])]
+    loss_fn = make_loss_fn(cfg)
+
+    def run(step_fn, state, place_batch=lambda b: b, mesh=None):
+        rows = []
+        with set_mesh(mesh):
+            for b in batches:
+                b = place_batch(b)
+                if cuda:
+                    state, row = timed_step(step_fn, state, b)
+                else:
+                    t0 = time.perf_counter()
+                    state, metrics = step_fn(state, b)
+                    row = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                               ms=(time.perf_counter() - t0) * 1e3)
+                row["loss_after"] = float(whole(loss_fn(state.params, b)[0]))
+                rows.append(row)
+        return state, rows
+
+    def fresh():
+        return init_state(cfg, ocfg, torch.Generator(device=device).manual_seed(0), device)
+
+    state, plain = run(make_train_step(cfg, ocfg), fresh())
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    del state
+    free()
+    plain_b = elastic_losses(cfg.replace(sharding_policy="none"), ocfg, spec, device, seq_len,
+                             global_batch)
+    free()
+    backend = init_group(device)
+    try:
+        mesh = DeviceMesh(device, torch.zeros((1, 1, 1), dtype=torch.int64),
+                          mesh_dim_names=("pod", "data", "model"))
+        sizes = axis_sizes(mesh)
+        state = fresh()
+        specs = state_specs(cfg, state, sizes, policy=policy)
+        state = place_state(state, mesh, specs)
+        bspec = batch_spec(cfg, (global_batch, seq_len), sizes, policy=policy)
+        state, meshed = run(make_train_step(cfg, ocfg, grad_specs=specs.params), state,
+                            lambda b: {k: place(v, mesh, bspec) for k, v in b.items()}, mesh)
+        prof = None
+        if cuda:
+            with set_mesh(mesh):
+                state, prof = profile_train_step(
+                    make_train_step(cfg, ocfg, grad_specs=specs.params), state,
+                    {k: place(v, mesh, bspec) for k, v in batches[0].items()})
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        del state
+        free()
+        meshed_b = elastic_losses(cfg.replace(sharding_policy="none"), ocfg, spec, device,
+                                  seq_len, global_batch, devices_per_pod=1)
+    finally:
+        dist.destroy_process_group()
+    free()
+
+    def rel(a, b):
+        return max(abs(x / y - 1) for x, y in zip(a, b))
+
+    losses, want = [r["loss"] for r in meshed], [r["loss"] for r in plain]
+    out = dict(arch=cfg.arch_id, n_layers=cfg.n_layers, card=card, backend=backend,
+               policy=policy, mesh=list(mesh.shape), losses=losses, plain_losses=want,
+               loss_max_rel_diff=rel(losses, want),
+               losses_after=[r["loss_after"] for r in meshed],
+               ms_per_step=statistics.median(r["ms"] for r in meshed[2:]),
+               plain_ms_per_step=statistics.median(r["ms"] for r in plain[2:]),
+               peak_gb=peak_gb, plain_peak_gb=plain_peak_gb,
+               busy_share=prof["busy_share"] if prof else None,
+               elastic=meshed_b, plain_elastic=plain_b,
+               elastic_loss_max_rel_diff=rel(meshed_b["losses"], plain_b["losses"]),
+               launched={k: v - launches.get(k, 0) for k, v in ops.LAUNCHES.items()
+                         if v != launches.get(k, 0)})
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh: (a) {cfg.arch_id} {cfg.n_layers} layers, policy {policy}, {backend} mesh "
+        f"{out['mesh']}: losses vs no mesh, max rel diff {out['loss_max_rel_diff']:.3e} (gate "
+        f"{MESH_LOSS_RTOL}); each step's loss before and after it: "
+        f"{json.dumps([[round(r['loss'], 5), round(r['loss_after'], 5)] for r in meshed])}")
+    log(f"mesh: (a) ms/step on the mesh {out['ms_per_step']:.2f} vs no mesh "
+        f"{out['plain_ms_per_step']:.2f}, peak GB {peak_gb} vs {plain_peak_gb}, device busy "
+        f"{out['busy_share']} of a profiled mesh step [{card}]")
+    log(f"mesh: (b) ElasticTrainer devices_per_pod=1: mesh shapes {meshed_b['shapes']}, remesh "
+        f"{json.dumps(meshed_b['remesh'])}, stall_count {meshed_b['stall_count']}; losses vs "
+        f"no process group max rel diff {out['elastic_loss_max_rel_diff']:.3e}; kernel launches "
+        f"{out['launched'] or 'none'}; phase 9 took {out['seconds']:.1f} s [{card}]")
+    faults = []
+    if not out["loss_max_rel_diff"] <= MESH_LOSS_RTOL:
+        faults.append(f"(a) losses {losses} vs no mesh {want}")
+    if not all(math.isfinite(r["loss_after"]) and r["loss_after"] < r["loss"] for r in meshed):
+        faults.append(f"(a) a step did not descend: {meshed}")
+    if meshed_b["stall_count"] or plain_b["stall_count"]:
+        faults.append(f"(b) stalls {meshed_b['stall_count']}, {plain_b['stall_count']}")
+    if meshed_b["shapes"] != [(1, 1)] or meshed_b["remesh"] != [
+            dict(r, devices=1) for r in plain_b["remesh"]] or len(meshed_b["remesh"]) != 2:
+        faults.append(f"(b) mesh shapes {meshed_b['shapes']}, remesh {meshed_b['remesh']} vs "
+                      f"{plain_b['remesh']}")
+    if not out["elastic_loss_max_rel_diff"] <= MESH_LOSS_RTOL:
+        faults.append(f"(b) losses {meshed_b['losses']} vs {plain_b['losses']}")
+    if out["launched"]:
+        faults.append(f"kernels launched: {out['launched']}")
+    if faults:
+        raise AssertionError("mesh: " + "; ".join(faults))
+    return out
+
+
 KERNELS = {
     "flash_prefill": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -2151,6 +2364,7 @@ def main() -> int:
     failover = failover_phase(card)
     testbed = testbed_phase(card)
     testbed_s = time.perf_counter() - t0
+    mesh = mesh_phase(card)
     log(card)
     for arch, (_, _, rates) in paths.items():
         log(f"rates {arch} [{card}]: prefill {rates['prefill_ms']:.2f} ms "
@@ -2181,6 +2395,12 @@ def main() -> int:
         f"{failover['control_ms_per_step']:.3f} ms a step; phase 8 took {testbed_s:.1f} s")
     log("failover rates:", json.dumps(failover))
     log("testbed:", json.dumps(testbed))
+    log(f"mesh rates {mesh['arch']} ({mesh['n_layers']} layers, {mesh['policy']}, one "
+        f"{mesh['backend']} rank) [{card}]: {mesh['ms_per_step']:.2f} ms/step on the "
+        f"{mesh['mesh']} mesh vs {mesh['plain_ms_per_step']:.2f} with no mesh, peak "
+        f"{mesh['peak_gb']:.2f} GB, device busy {mesh['busy_share']:.1%} of a profiled step; "
+        f"phase 9 took {mesh['seconds']:.1f} s")
+    log("mesh:", json.dumps(mesh))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

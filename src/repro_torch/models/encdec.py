@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .. import resolve_device, torch_dtype
 from .config import ModelConfig
@@ -32,11 +33,13 @@ from .layers import (
     attn_decode_apply,
     attn_init,
     cross_attn_apply,
+    embed_rows,
     mlp_apply,
     mlp_init,
     rms_norm,
 )
 from .lm import _attn_shapes, _cast, _fill, _mlp_shapes, _params, _Stacked, checkpointed
+from .sharding import constrain_residual
 
 Tensor = torch.Tensor
 
@@ -112,13 +115,14 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         p = _cast(p, x.dtype)
         x = x + attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=False)
-        return x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        return constrain_residual(cfg, x)
 
     def decode_seq(self, tokens: Tensor, memory: Tensor, *, remat: bool = False) -> Tensor:
         """Teacher-forced decoder pass; returns the final hidden states.
         The embedding rows are not cast, as in the reference: with f32
         masters the decoder computes in f32 whatever the config's type."""
-        x = self.embed[tokens]
+        x = embed_rows(self.embed, tokens)
         for p in self.dec_blocks.layers():
             x = (checkpointed(self._dec_layer, x, p, memory) if remat
                  else self._dec_layer(x, p, memory))
@@ -129,7 +133,8 @@ class EncDecLM(nn.Module):
         p = _cast(p, x.dtype)
         x = x + attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=True)
         x = x + cross_attn_apply(cfg, p["xattn"], rms_norm(x, p["ln_x"]), memory)
-        return x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
+        return constrain_residual(cfg, x)
 
     def hidden_states(self, batch: Dict[str, Tensor], *, with_aux: bool = False,
                       remat: bool = False):
@@ -141,6 +146,8 @@ class EncDecLM(nn.Module):
 
     def logits(self, hidden: Tensor) -> Tensor:
         """Tied embedding, in the param type, then f32."""
+        if isinstance(hidden, DTensor):
+            return _project(hidden, self.embed.T).float()
         return torch.matmul(hidden, self.embed.T).float()
 
     def apply(self, batch: Dict[str, Tensor]) -> Tensor:

@@ -14,6 +14,17 @@ kernel path, chosen by ``cfg.attn_impl``:
 
 The decode step follows the same rule between ``attention_decode`` and the
 decode kernel; ``use_kernel`` states it once.
+
+Under ``sharding_policy="fsdp"`` attention is ``attention_fsdp_seqshard``
+whatever ``attn_impl`` says, as in the reference: on a mesh with a 'model'
+axis each rank attends its query shard against the full K/V
+(``local_map``), and otherwise it is ``attention_chunked``.
+
+The functions take DTensors as well as tensors (a model on a mesh).  The
+ops that contract (projections, attention, the embedding gather) run on
+each rank's local shard through ``local_map``, their weights gathered whole
+at use; elementwise ops and norms run as DTensor ops, and a plain tensor
+they make for a DTensor input (positions, masks) joins it replicated.
 """
 
 from __future__ import annotations
@@ -23,8 +34,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import ops as kops
+from . import sharding
 from .config import ModelConfig
 
 Tensor = torch.Tensor
@@ -34,6 +48,48 @@ NEG_INF = -2.0e38  # large-negative fill that survives bf16/fp32 softmax
 # --------------------------------------------------------------------------
 # Elementary ops
 # --------------------------------------------------------------------------
+def replicated_like(t: Tensor, x: Tensor) -> Tensor:
+    """``t`` (the same on every rank) as a replicated DTensor on ``x``'s
+    mesh where ``x`` is a DTensor; else ``t``."""
+    if not isinstance(x, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def kept_shards(x: DTensor, dims) -> list:
+    """``x``'s placements with a shard kept where it splits one of ``dims``
+    and ``Replicate`` elsewhere (a ``Partial`` is reduced)."""
+    return [p if isinstance(p, Shard) and p.dim in dims else Replicate() for p in x.placements]
+
+
+def partial_where_sharded(placements) -> list:
+    """The gradient's placements of a tensor that each rank used whole
+    against inputs laid out by ``placements``: a partial sum over each mesh
+    dim that splits them."""
+    return [Partial() if isinstance(p, Shard) else Replicate() for p in placements]
+
+
+def local_with_replicated(fn, x: DTensor, x_placements, *replicated: Tensor,
+                          out_placements=None):
+    """``fn(x_local, *replicated_local)`` on each rank: ``x`` laid out by
+    ``x_placements``, every other input gathered whole (its gradient the
+    partial sum of the ranks' that ``x_placements`` splits), the output
+    laid out as ``x`` unless ``out_placements`` says otherwise.  The
+    matmuls of the mesh path run so, on local shapes, as under the
+    reference's shard_map; only elementwise ops and norms run as DTensor
+    ops."""
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    grad = partial_where_sharded(x_placements)
+    return local_map(
+        fn, out_placements=x_placements if out_placements is None else out_placements,
+        in_placements=(x_placements,) + (rep,) * len(replicated),
+        in_grad_placements=(x_placements,) + (grad,) * len(replicated),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(x, *(replicated_like(t, x) for t in replicated))
+
+
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
     dtype = x.dtype
     x = x.float()
@@ -71,8 +127,8 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     half = hd // 2
     freq = _rope_freq(half, theta, x.device)
     angles = positions[..., None].float() * freq  # (..., S, half)
-    sin = torch.sin(angles)[..., None, :]  # (..., S, 1, half)
-    cos = torch.cos(angles)[..., None, :]
+    sin = replicated_like(torch.sin(angles)[..., None, :], x)  # (..., S, 1, half)
+    cos = replicated_like(torch.cos(angles)[..., None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -104,7 +160,7 @@ def _attend(qh: Tensor, k: Tensor, v: Tensor, bias: Tensor, cfg: ModelConfig) ->
     logits = torch.einsum("bqkrd,bskd->bkrqs", qh, k).float()
     logits = logits * _qk_scale(cfg)
     logits = softcap(logits, cfg.attn_logit_softcap)
-    logits = logits + bias
+    logits = logits + replicated_like(bias, logits)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bkrqs,bskd->bqkrd", w, v)
 
@@ -210,7 +266,73 @@ def _kernel_window(cfg: ModelConfig, is_local: bool) -> Optional[int]:
     return cfg.sliding_window if (cfg.sliding_window and is_local) else None
 
 
+def attention_fsdp_seqshard(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    cfg: ModelConfig,
+    causal: bool = True,
+    is_local: bool = False,
+    q_offset: int = 0,
+) -> Tensor:
+    """Sequence-parallel attention under the fsdp policy: queries stay
+    sharded over 'model' along the sequence; each rank runs the local
+    chunked attention against the (replicated) full K/V with its shard's
+    position offset.  Expressed with ``local_map`` (the reference's
+    ``shard_map``) so the q-chunk loop runs on *local* shapes.  Without a
+    mesh, on plain tensors, or where the mesh has no 'model' axis, 'model'
+    does not divide Sq or ('pod','data') does not divide B, it is
+    ``attention_chunked``."""
+    chunked = functools.partial(attention_chunked, cfg=cfg, causal=causal, is_local=is_local)
+    if not isinstance(q, DTensor):
+        return chunked(q, k, v, q_offset=q_offset)
+    mesh = sharding.current_mesh()
+    sizes = sharding._mesh_sizes() or {}
+    dp = sharding._dp(sizes)
+    B, Sq = q.shape[0], q.shape[1]
+    if (
+        not sizes
+        or "model" not in sizes
+        or Sq % sizes["model"] != 0
+        or (dp and B % sharding._size(sizes, dp) != 0)
+    ):
+        return _attention_local(q, k, v, functools.partial(chunked, q_offset=q_offset))
+    b_ax = dp if dp else None
+    qp = sharding.to_placements(sharding._pad((b_ax, "model", None, None), 4), mesh, q.shape)
+    kvp = sharding.to_placements(sharding._pad((b_ax, None, None, None), 4), mesh, k.shape)
+    # Each rank's K/V gradient covers its own queries only: a partial sum
+    # over 'model' (the transpose of shard_map's replicated input).
+    kv_grad = [Partial() if name == "model" else p
+               for name, p in zip(mesh.mesh_dim_names, kvp)]
+
+    def local_fn(ql, kl, vl):
+        return chunked(ql, kl, vl, q_offset=mesh["model"].get_local_rank() * ql.shape[1])
+
+    return local_map(local_fn, out_placements=qp, in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _attention_local(q: DTensor, k: DTensor, v: DTensor, fn) -> DTensor:
+    """``fn`` (a plain attention) on each rank's rows and heads: a mesh dim
+    stays split where it splits q, k and v alike by batch (dim 0) or by
+    heads (dim 2: GQA's groups stay whole, as H and K split alike); every
+    other split is gathered first."""
+    k, v = replicated_like(k, q), replicated_like(v, q)
+    placements = [p if (isinstance(p, Shard) and p.dim in (0, 2)
+                        and k.placements[i] == p and v.placements[i] == p) else Replicate()
+                  for i, p in enumerate(q.placements)]
+    return local_map(fn, out_placements=placements, in_placements=(placements,) * 3,
+                     device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)
+
+
 def attention(q, k, v, *, cfg: ModelConfig, causal: bool = True, is_local: bool = False) -> Tensor:
+    if cfg.sharding_policy == "fsdp":
+        return attention_fsdp_seqshard(q, k, v, cfg=cfg, causal=causal, is_local=is_local)
+    if isinstance(q, DTensor):
+        return _attention_local(q, k, v, functools.partial(
+            attention, cfg=cfg, causal=causal, is_local=is_local))
     if _kernel_impl(cfg, q, k, v):
         return kops.flash_attention(
             q, k, v, scale=_qk_scale(cfg), causal=causal,
@@ -246,10 +368,28 @@ def attn_init(cfg: ModelConfig, generator: torch.Generator, dtype, device) -> Di
     return p
 
 
+def embed_rows(table: Tensor, tokens: Tensor) -> Tensor:
+    """``table[tokens]``; on a mesh each rank gathers its tokens' rows of
+    the table gathered whole."""
+    if isinstance(table, DTensor) or isinstance(tokens, DTensor):
+        tokens = replicated_like(tokens, table)
+        return local_with_replicated(lambda t, w: w[t], tokens,
+                                     kept_shards(tokens, range(tokens.dim())), table)
+    return table[tokens]
+
+
 def _project(x: Tensor, w: Tensor, n_in: int = 1) -> Tensor:
     """Contracts x's last ``n_in`` dims with w's first ``n_in`` dims (the
     einsums "bsd,dhe->bshe", "bshe,hed->bsd", "bsd,df->bsf") as one matmul
-    over flattened dims: the same sums with far less host work per call."""
+    over flattened dims: the same sums with far less host work per call.
+    On a mesh the weight is gathered at use (ZeRO-3) and each rank
+    contracts its rows of x, the contracted dims gathered."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        if not isinstance(x, DTensor):
+            x = replicated_like(x, w)
+        lead = range(x.dim() - n_in)
+        return local_with_replicated(functools.partial(_project, n_in=n_in), x,
+                                     kept_shards(x, lead), w)
     lead, k_dims = x.shape[: x.dim() - n_in], w.shape[:n_in]
     out = x.reshape(*lead, -1) @ w.reshape(k_dims.numel(), -1)
     return out.reshape(*lead, *w.shape[n_in:])
@@ -259,6 +399,11 @@ def attn_qkv(cfg: ModelConfig, p, x: Tensor, positions: Tensor):
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
+    if cfg.sharding_policy != "none":
+        # Attention boundary resharding (policy-dependent): under tp the
+        # heads ride 'model' and the sequence gathers (Megatron SP);
+        # under fsdp the queries stay sequence-sharded and K/V gather.
+        q, k, v = sharding.constrain_attn_qkv(cfg, q, k, v)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])

@@ -23,14 +23,17 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
 from .config import ModelConfig
 from .layers import (
+    _project,
     attn_apply,
     attn_decode_apply,
     attn_init,
+    embed_rows,
     mlp_apply,
     mlp_init,
     rms_norm,
@@ -44,6 +47,7 @@ from .mamba2 import (
     mamba_state_init,
 )
 from .moe import moe_apply, moe_init, moe_shapes
+from .sharding import constrain_residual
 
 Tensor = torch.Tensor
 
@@ -269,7 +273,7 @@ class LM(nn.Module):
         """The token rows, cast to ``dtype`` when given (the forward pass
         casts to the config type; prefill and decode, as the reference's,
         take the rows in the weights' type)."""
-        x = self.embed[tokens]
+        x = embed_rows(self.embed, tokens)
         if dtype is not None:
             x = x.to(dtype)
         if self.cfg.emb_scale_by_sqrt_dim:
@@ -309,7 +313,8 @@ class LM(nn.Module):
         auxs: list = []
         h = attn_apply(self.cfg, p["attn"], rms_norm(x, p["ln1"]),
                        is_local=self.cfg.is_local_layer(i))
-        return self._block_tail(p, x, h, auxs=auxs), (auxs[0] if auxs else {})
+        y = constrain_residual(self.cfg, self._block_tail(p, x, h, auxs=auxs))
+        return y, (auxs[0] if auxs else {})
 
     def _ssm_layer(self, x: Tensor, p, i: int):
         """Mamba-2 layer i, and the hybrid's shared block where it follows
@@ -317,7 +322,7 @@ class LM(nn.Module):
         cfg = self.cfg
         p = _cast(p, x.dtype)
         h, _ = mamba_apply(cfg, p["mamba"], rms_norm(x, p["ln1"]))
-        x = x + h
+        x = constrain_residual(cfg, x + h)
         if self._shared_after(i):
             sp = _cast(self.shared.weights(), x.dtype)
             h = attn_apply(cfg, sp["attn"], rms_norm(x, sp["ln1"]))
@@ -327,7 +332,8 @@ class LM(nn.Module):
     def logits(self, hidden: Tensor) -> Tensor:
         """Einsum in the param dtype, then f32 (and the final softcap)."""
         w = self.unembed if not self.cfg.tie_embeddings else self.embed.T
-        out = torch.matmul(hidden, w).float()
+        out = _project(hidden, w) if isinstance(hidden, DTensor) else torch.matmul(hidden, w)
+        out = out.float()
         return softcap(out, self.cfg.final_logit_softcap)
 
     def apply(self, tokens: Tensor) -> Tensor:

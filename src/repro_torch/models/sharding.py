@@ -28,18 +28,24 @@ state's keys (``kv``, ``shared_kv``, ``ssm``, ``xk``, ``xv``).
 ``to_placements`` turns a spec into DTensor placements over a
 ``DeviceMesh``.
 
-Not ported: ``_constrain``, the ``constrain_*`` activation constraints and
-``_mesh_sizes``.  They act only inside a model running under a mesh, do
-nothing at ``sharding_policy="none"``, and have no one-device counterpart;
-they come with the multi-device paths.
+The activation constraints (``constrain_residual``, ``constrain_attn_qkv``,
+``constrain_seq_sharded``) read the current mesh, which ``set_mesh`` sets
+for a block of code as ``jax.set_mesh`` does.  A constraint changes a
+DTensor's layout (``redistribute``), never its values; with no mesh, or on
+a plain tensor, it returns its input, as the reference's ``try/except``
+leaves an array outside a mesh as it is.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
+import contextlib
+import contextvars
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
+import torch
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Placement, Replicate, Shard
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
 from .config import ModelConfig
 
@@ -319,3 +325,146 @@ def to_placements(spec: Spec, mesh: DeviceMesh, shape: Sequence[int]) -> List[Pl
             raise ValueError(f"spec {spec}: dim {d} of {tuple(shape)} does not divide over "
                              f"{axes} ({_size(sizes, axes)})")
     return placements
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s whole value: a DTensor's gathered over its mesh (on a rank
+    outside that mesh, an uninitialized tensor of its shape), a tensor
+    itself."""
+    t = t.detach()
+    if not isinstance(t, DTensor):
+        return t
+    if t.device_mesh.get_coordinate() is None:
+        return torch.empty(t.shape, dtype=t.dtype, device=t.to_local().device)
+    return t.full_tensor()
+
+
+def place(t: torch.Tensor, mesh: DeviceMesh, spec: Spec, *,
+          src_data_rank: Optional[int] = None) -> DTensor:
+    """``t`` laid out by ``spec`` on ``mesh``; a DTensor is gathered whole
+    first (a transient full copy), so a tensor moves between meshes.  With
+    ``src_data_rank`` None each rank keeps its shard of its own whole value
+    (the same on every rank) and nothing is sent; else the ranks take the
+    shards of the value on the mesh's rank ``src_data_rank`` along each of
+    its dims."""
+    return distribute_tensor(whole(t), mesh, to_placements(spec, mesh, t.shape),
+                             src_data_rank=src_data_rank)
+
+
+def place_module(module: nn.Module, mesh: DeviceMesh, specs: Mapping[str, Spec], *,
+                 src_data_rank: Optional[int] = None) -> nn.Module:
+    """Replaces each parameter of ``module``, one at a time, by a DTensor
+    parameter laid out by its spec (``specs`` by parameter name, as
+    ``param_specs`` gives them), keeping ``requires_grad``; returns the
+    module."""
+    for name, p in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        d = place(p, mesh, specs[name], src_data_rank=src_data_rank)
+        module.get_submodule(owner).register_parameter(
+            leaf, nn.Parameter(d, requires_grad=p.requires_grad))
+    return module
+
+
+# --------------------------------------------------------------------------
+# The current mesh and the activation constraints (used inside model code;
+# they read cfg.sharding_policy)
+# --------------------------------------------------------------------------
+_MESH: contextvars.ContextVar[Optional[DeviceMesh]] = contextvars.ContextVar(
+    "repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Optional[DeviceMesh]) -> Iterator[Optional[DeviceMesh]]:
+    """The current mesh inside the block: the counterpart of
+    ``jax.set_mesh``.  ``None`` runs the block with no mesh."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh() -> Optional[DeviceMesh]:
+    return _MESH.get()
+
+
+def _mesh_sizes() -> Optional[Dict[str, int]]:
+    mesh = _MESH.get()
+    if mesh is None or not mesh.mesh_dim_names:
+        return None
+    return axis_sizes(mesh)
+
+
+def _constrain(x, spec: Spec):
+    """``x`` laid out by ``spec`` over the current mesh: a DTensor of that
+    mesh is redistributed; anything else is returned as it is."""
+    mesh = _MESH.get()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, to_placements(spec, mesh, x.shape))
+
+
+def constrain_residual(cfg: ModelConfig, x):
+    """(B, S, D) residual stream at layer boundaries.
+
+    tp policy: seq over 'model' (Megatron SP — bounds remat memory).
+    fsdp policy: seq over 'model' (it arrived that way; keep it pinned).
+    """
+    if cfg.sharding_policy not in ("tp", "fsdp"):
+        return x
+    sizes = _mesh_sizes()
+    if not sizes:
+        return x
+    dp = _dp(sizes)
+    b_ax = dp if (dp and x.shape[0] % _size(sizes, dp) == 0) else None
+    s_ax = "model" if _div(x.shape[1], sizes, "model") else None
+    return _constrain(x, _pad((b_ax, s_ax, None), x.dim()))
+
+
+def constrain_attn_qkv(cfg: ModelConfig, q, k, v):
+    """Attention boundary (B, S, H|K, hd).
+
+    tp: heads over 'model', sequence gathered (the SP all-gather).
+    fsdp: q stays SEQUENCE-sharded over 'model' (each device computes its
+    query chunk against the full K/V — flash-decode-style partitioning);
+    K/V gather the sequence and replicate heads.
+    """
+    if cfg.sharding_policy not in ("tp", "fsdp"):
+        return q, k, v
+    if cfg.sharding_policy == "fsdp" and cfg.family in ("ssm", "hybrid"):
+        return q, k, v  # batch is flat-sharded; attention is row-local
+    sizes = _mesh_sizes()
+    if not sizes:
+        return q, k, v
+    dp = _dp(sizes)
+
+    def bax(x):
+        return dp if (dp and x.shape[0] % _size(sizes, dp) == 0) else None
+
+    if cfg.sharding_policy == "tp":
+        def heads(x):
+            h_ax = "model" if _div(x.shape[2], sizes, "model") else None
+            return _constrain(x, _pad((bax(x), None, h_ax, None), x.dim()))
+
+        return heads(q), heads(k), heads(v)
+
+    s_ax = "model" if _div(q.shape[1], sizes, "model") else None
+    q = _constrain(q, _pad((bax(q), s_ax, None, None), q.dim()))
+    k = _constrain(k, _pad((bax(k), None, None, None), k.dim()))
+    v = _constrain(v, _pad((bax(v), None, None, None), v.dim()))
+    return q, k, v
+
+
+def constrain_seq_sharded(x, *, seq_axis: int = 1):
+    """Batch over ('pod','data') and the sequence over 'model', each where
+    it divides."""
+    sizes = _mesh_sizes()
+    if not sizes:
+        return x
+    dp = _dp(sizes)
+    spec: List[Entry] = [None] * x.dim()
+    if dp and x.shape[0] % _size(sizes, dp) == 0:
+        spec[0] = dp
+    if _div(x.shape[seq_axis], sizes, "model"):
+        spec[seq_axis] = "model"
+    return _constrain(x, _pad(tuple(spec), x.dim()))

@@ -14,6 +14,12 @@ Leaves are named as JAX names a tree's paths: a NamedTuple's field as
 (mapping keys sorted); a module stands for the mapping of its parameters,
 and a dotted name (``blocks.attn.wq``) for the nested keys it spells.  So a
 checkpoint written by either package restores in the other.
+
+A state on a mesh (DTensor leaves) is saved whole: every rank of the world
+calls ``save``, each leaf is gathered over its mesh, rank 0 writes the same
+files and manifest as for a state on one device, and the others wait for
+its manifest.  ``restore`` reads the files on every rank and keeps each
+leaf's shard on the live mesh.
 """
 
 from __future__ import annotations
@@ -26,7 +32,11 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from ..models.sharding import whole
 
 # npz cannot store bfloat16: it crosses as its uint16 view, under the dtype
 # name JAX writes.
@@ -70,12 +80,25 @@ def save(
 ) -> Dict[str, Any]:
     """Write a sharded checkpoint; returns the manifest (to be committed
     to the ledger by the caller)."""
-    os.makedirs(directory, exist_ok=True)
     names, leaves = _leaf_paths(tree)
+    if any(isinstance(leaf, DTensor) for leaf in leaves):
+        writer = dist.get_rank() == 0
+        arrays = []
+        for leaf in leaves:  # each gathered over its mesh, one at a time
+            full = whole(leaf)
+            arrays.append(_to_numpy(full) if writer else None)
+            del full
+        out = [_write(directory, step, names, arrays, meta, n_shards) if writer else None]
+        dist.broadcast_object_list(out, src=0)  # the others wait for rank 0's manifest
+        return out[0]
+    return _write(directory, step, names, [_to_numpy(leaf) for leaf in leaves], meta, n_shards)
+
+
+def _write(directory: str, step: int, names, arrays, meta, n_shards: int) -> Dict[str, Any]:
+    os.makedirs(directory, exist_ok=True)
     shards: Dict[int, Dict[str, np.ndarray]] = {i: {} for i in range(n_shards)}
     entries = []
-    for i, (name, leaf) in enumerate(zip(names, leaves)):
-        stored, dtype = _to_numpy(leaf)
+    for i, (name, (stored, dtype)) in enumerate(zip(names, arrays)):
         shard = i % n_shards
         key = f"leaf{i}"
         shards[shard][key] = stored
@@ -106,7 +129,7 @@ def save(
 @torch.no_grad()
 def restore(directory: str, manifest: Dict[str, Any], like: Any) -> Any:
     """Restores into the tensors of ``like`` in place (a module's
-    parameters included) and returns it.  Validates every shard's digest
+    parameters included, a DTensor's shard on this rank) and returns it.  Validates every shard's digest
     (``IOError``) and every leaf's shape (``ValueError``); each stored
     array is cast to its tensor's type, as the reference casts to the
     type of ``like``."""
@@ -131,7 +154,12 @@ def restore(directory: str, manifest: Dict[str, Any], like: Any) -> Any:
         src = torch.from_numpy(arr.copy())
         if e["dtype"] == BF16:
             src = src.view(torch.int16).view(torch.bfloat16)
-        leaf.copy_(src.to(leaf.dtype))
+        if isinstance(leaf, DTensor):  # this rank's shard, read from its own copy
+            src = distribute_tensor(src.to(leaf.dtype), leaf.device_mesh, leaf.placements,
+                                    src_data_rank=None)
+            leaf.to_local().copy_(src.to_local())
+        else:
+            leaf.copy_(src.to(leaf.dtype))
     return like
 
 

@@ -7,6 +7,10 @@ moments are f32 tensors under the same names, or with ``int8_state``
 blockwise int8 ``{"q", "s"}`` pairs.  ``update`` writes the new parameters
 and moments into the given tensors in place: at full width a second copy
 of the f32 masters or moments would not fit beside the first.
+
+On a mesh the masters, moments and gradients are DTensors: the update runs
+elementwise on each rank's shards, op for op as on one device, and the
+global norm sums each rank's local squares over the mesh.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
 Tensor = torch.Tensor
 
@@ -95,8 +100,46 @@ def init(cfg: OptConfig, params: Mapping[str, Tensor]) -> AdamState:
     )
 
 
+def _square_sum(g: Tensor) -> Tensor:
+    """The sum of the squares of ``g``'s elements that this rank counts: on
+    a mesh its shard's, on the ranks at coordinate 0 of every mesh dim that
+    replicates ``g`` (a replicated element is counted once), else 0."""
+    if not isinstance(g, DTensor):
+        return torch.sum(torch.square(g.float()))
+    if any(p.is_partial() for p in g.placements):
+        raise ValueError(f"global_norm: a partial gradient ({g.placements}); redistribute it")
+    s = torch.sum(torch.square(g.to_local().float()))
+    coord = g.device_mesh.get_coordinate()
+    if any(p.is_replicate() and c != 0 for p, c in zip(g.placements, coord)):
+        return torch.zeros_like(s)
+    return s
+
+
 def global_norm(tree: Mapping[str, Tensor]) -> Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
+    """The L2 norm of every tensor of ``tree``; on a mesh, from each rank's
+    local squares, summed over the mesh."""
+    total = sum(_square_sum(g) for g in tree.values())
+    mesh = next((g.device_mesh for g in tree.values() if isinstance(g, DTensor)), None)
+    if mesh is not None:
+        total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                                   run_check=False).full_tensor()
+    return torch.sqrt(total)
+
+
+def _local(t: Tensor, placements) -> Tensor:
+    """``t``'s shard in ``placements`` on this rank (a plain tensor is its
+    own)."""
+    if not isinstance(t, DTensor):
+        return t
+    if tuple(t.placements) != tuple(placements):
+        t = t.redistribute(t.device_mesh, placements)
+    return t.to_local()
+
+
+def _local_like(g: Tensor, p: Tensor) -> Tensor:
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -109,6 +152,9 @@ def update(
     params and f32 moments updated in place."""
     if set(grads) != set(params):
         raise KeyError(f"grads {sorted(set(grads) ^ set(params))} do not match the params")
+    # A gradient on a mesh in another layout than its master's (a partial
+    # sum, from a DTensor op's backward) is reduced to it here, in its type.
+    grads = {k: _local_like(g, params[k]) for k, g in grads.items()}
     step = state.step + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
@@ -118,26 +164,39 @@ def update(
     b2c = 1 - cfg.b2 ** step.float()
     new_m, new_v = {}, {}
     for name, p in params.items():
-        g = grads[name].float() * scale
         m, v = state.m[name], state.v[name]
+        if isinstance(p, DTensor) and cfg.int8_state:
+            raise NotImplementedError("int8 moments on a mesh")
+        # On a mesh the update runs on the moments' shards (ZeRO: they may
+        # split what the parameter replicates), the gradient and the
+        # master resharded to them; the master's new values go back to
+        # its own layout.
+        lay = m.placements if isinstance(m, DTensor) else getattr(p, "placements", None)
+        g = _local(grads[name], lay).float() * scale
+        m_f, v_f = _local(m, lay), _local(v, lay)
+        p_l = _local(p, lay)
         if cfg.int8_state:
             m_f = _dq8(m["q"], m["s"], p.shape)
             v_f = _dq8(v["q"], v["s"], p.shape)
-        else:
-            m_f, v_f = m, v
         # The reference's expressions, op for op: b1*m + (1-b1)*g,
         # b2*v + ((1-b2)*g)*g, then mh / (sqrt(vh) + eps) + wd*p.
         m_f = m_f.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v_f = v_f.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         del g
         delta = torch.div(v_f, b2c).sqrt_().add_(cfg.eps)
-        delta = torch.div(m_f, b1c).div_(delta).add_(cfg.weight_decay * p.float())
-        p.sub_(delta.mul_(lr))
+        delta = torch.div(m_f, b1c).div_(delta).add_(cfg.weight_decay * p_l.float())
+        delta.mul_(lr)
+        if isinstance(p, DTensor) and tuple(p.placements) != tuple(lay):
+            delta = DTensor.from_local(delta, p.device_mesh, lay, run_check=False,
+                                       shape=p.shape, stride=p.stride())
+            delta = delta.redistribute(p.device_mesh, p.placements).to_local()
+        p_l = p.to_local() if isinstance(p, DTensor) else p
+        p_l.sub_(delta)
         if cfg.int8_state:
             qm, sm = _q8(m_f, cfg.int8_block)
             qv, sv = _q8(v_f, cfg.int8_block)
             new_m[name], new_v[name] = {"q": qm, "s": sm}, {"q": qv, "s": sv}
         else:
-            new_m[name], new_v[name] = m_f, v_f
+            new_m[name], new_v[name] = m, v
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamState(m=new_m, v=new_v, step=step), metrics

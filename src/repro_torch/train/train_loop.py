@@ -10,18 +10,25 @@ microbatches in bf16, and the AdamW update widens them to f32.
 Under autograd the models take the reference's plain attention and SSD
 (``layers.use_kernel``): the hand-written kernels have no backward, as the
 reference's Pallas kernels have no VJP.
+
+On a mesh (``place_state``, then the step under ``sharding.set_mesh``) the
+masters, moments and batch are DTensors; ``grad_specs`` pins the bf16
+gradients to the parameters' layout, and the metrics come back whole.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from .. import resolve_device
 from ..models import get_model
 from ..models.config import ModelConfig
+from ..models.sharding import Spec, place, place_module, to_placements, whole
 from . import optimizer as opt
 from .losses import chunked_xent
 
@@ -45,6 +52,39 @@ def init_state(cfg: ModelConfig, ocfg: opt.OptConfig, generator: torch.Generator
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _map_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(tensor, spec)`` over a moments tree (name -> tensor, or an int8
+    ``{"q", "s"}`` pair) and its specs."""
+    if isinstance(tree, Mapping):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def place_state(state: TrainState, mesh: DeviceMesh, specs: TrainState, *,
+                src_data_rank: Optional[int] = None) -> TrainState:
+    """``state`` laid out on ``mesh`` by ``specs`` (``state_specs``'s): the
+    masters and moments become DTensors in place, one tensor at a time
+    (``sharding.place``, which also moves a state between meshes,
+    ``src_data_rank`` as there); the step counts stay whole tensors on
+    every rank, and with a ``src_data_rank`` the mesh's ranks take its
+    counts (a rank that was outside the old mesh took no steps there)."""
+    def move(t: Tensor, spec: Spec) -> DTensor:
+        return place(t, mesh, spec, src_data_rank=src_data_rank)
+
+    def count(t: Tensor) -> Tensor:
+        if src_data_rank is None or mesh.get_coordinate() is None:
+            return t
+        return move(t, (None,) * t.dim()).to_local()
+
+    place_module(state.params, mesh, specs.params, src_data_rank=src_data_rank)
+    for which in ("m", "v"):
+        moments, wanted = getattr(state.opt, which), getattr(specs.opt, which)
+        for k in list(moments):
+            moments[k] = _map_specs(move, moments[k], wanted[k])
+    return TrainState(state.params, state.opt._replace(step=count(state.opt.step)),
+                      count(state.step))
+
+
 def make_loss_fn(cfg: ModelConfig):
     def loss_fn(model: nn.Module, batch: Dict[str, Tensor]):
         inputs = batch if cfg.family == "encdec" else batch["tokens"]
@@ -59,9 +99,23 @@ def make_loss_fn(cfg: ModelConfig):
     return loss_fn
 
 
-def make_grad_fn(cfg: ModelConfig):
+def _pin(g: Tensor, grad_specs: Optional[Mapping[str, Spec]], name: str) -> Tensor:
+    """``g`` laid out by ``grad_specs[name]`` on its mesh (a DTensor), else
+    ``g``."""
+    if grad_specs is None or not isinstance(g, DTensor):
+        return g
+    mesh = g.device_mesh
+    return g.redistribute(mesh, to_placements(grad_specs[name], mesh, g.shape))
+
+
+def make_grad_fn(cfg: ModelConfig, grad_specs: Optional[Mapping[str, Spec]] = None):
     """(model, batch) -> (loss, metrics, bf16 grads by parameter name): the
-    reference's ``grad_fn``, its gradient reduction in bf16."""
+    reference's ``grad_fn``.  With ``grad_specs`` (``param_specs``'s, by
+    parameter name) each bf16 gradient on a mesh is laid out as its
+    parameter: a partial sum is reduced there, in bf16, as the reference's
+    cross-device gradient sum.  (A parameter gathered at use gets its
+    gradient back in its own layout, reduced in f32 by the gather's
+    backward.)"""
     loss_fn = make_loss_fn(cfg)
 
     def grad_fn(model: nn.Module, batch: Dict[str, Tensor]):
@@ -71,20 +125,32 @@ def make_grad_fn(cfg: ModelConfig):
         grads = {}
         for name, p in model.named_parameters():
             g = torch.zeros_like(p) if p.grad is None else p.grad
-            grads[name] = g.to(torch.bfloat16)
+            grads[name] = _pin(g.to(torch.bfloat16), grad_specs, name)
             p.grad = None  # one f32 gradient freed as each bf16 one is made
-        return loss.detach(), metrics, grads
+        return whole(loss), {k: whole(v) for k, v in metrics.items()}, grads
 
     return grad_fn
 
 
-def make_train_step(cfg: ModelConfig, ocfg: opt.OptConfig, *, microbatches: int = 1):
+def _microbatch(t: Tensor, i: int, n: int) -> Tensor:
+    """Rows [i B/n, (i+1) B/n) of ``t``; on a mesh laid out as ``t``."""
+    mb = t.shape[0] // n
+    part = t[i * mb:(i + 1) * mb]
+    if isinstance(t, DTensor):
+        part = part.redistribute(t.device_mesh, t.placements)
+    return part
+
+
+def make_train_step(cfg: ModelConfig, ocfg: opt.OptConfig, *, microbatches: int = 1,
+                    grad_specs: Optional[Mapping[str, Spec]] = None):
     """``(state, batch) -> (state, metrics)``.  ``microbatches > 1`` takes
     the gradient of each contiguous batch slice in turn and sums them in
     bf16, then divides by the count, as the reference's scan does.  The
     state's masters and moments are updated in place; the returned state
-    holds them and the next step count."""
-    grad_fn = make_grad_fn(cfg)
+    holds them and the next step count.  ``grad_specs`` (``param_specs``'s,
+    by parameter name) pins the bf16 gradients on a mesh to the parameter
+    layout, the sum of the microbatches' and their mean too."""
+    grad_fn = make_grad_fn(cfg, grad_specs)
 
     def train_step(state: TrainState, batch: Dict[str, Tensor]):
         model = state.params
@@ -93,9 +159,7 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.OptConfig, *, microbatches: int 
         else:
             grads, loss_sum, per_mb = None, 0.0, []
             for i in range(microbatches):
-                mb_batch = {k: v[i * (v.shape[0] // microbatches):
-                                 (i + 1) * (v.shape[0] // microbatches)]
-                            for k, v in batch.items()}
+                mb_batch = {k: _microbatch(v, i, microbatches) for k, v in batch.items()}
                 loss, metrics, g = grad_fn(model, mb_batch)
                 if grads is None:  # 0 + g in bf16 is g
                     grads = g
@@ -104,8 +168,8 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.OptConfig, *, microbatches: int 
                         acc.add_(g[name])
                 loss_sum = loss_sum + loss
                 per_mb.append(metrics)
-            for acc in grads.values():
-                acc.div_(microbatches)
+            for name, acc in grads.items():
+                grads[name] = _pin(acc.div_(microbatches), grad_specs, name)
             loss = loss_sum / microbatches
             metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
 

@@ -23,6 +23,9 @@
   crash in step 60, pod1 replaced by pod3 in step 70, 110.5 simulated ms
   later); its gates reject each fault put into its readings; the testbed
   phase runs the catalog, a TCP scenario and the model checker.
+* Phase 9: the mesh phase runs its gates on a one-rank gloo group at the
+  smoke size (fewer steps): the mesh's losses equal the no-mesh run's bit
+  for bit, and the elastic trainer collapses two pods onto the one rank.
 """
 
 import copy
@@ -473,3 +476,18 @@ def test_testbed_phase_on_cpu(monkeypatch):
     sd, mutant = out["mc"]
     assert (sd["states"], sd["complete"], sd["found"]) == (796, True, False)
     assert mutant["found"]
+
+
+def test_mesh_phase_on_cpu():
+    cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = smoke.mesh_phase("CPU", spec=dict(smoke.MESH, steps=3, steps_b=2), device="cpu",
+                               cfg=cfg, seq_len=32, opt=dict(lr=1e-3, warmup_steps=1))
+    finally:
+        torch.set_num_threads(threads)
+    assert (out["backend"], out["policy"], out["mesh"]) == ("gloo", "fsdp", [1, 1, 1])
+    assert out["loss_max_rel_diff"] == 0.0 and out["elastic_loss_max_rel_diff"] == 0.0
+    assert out["elastic"]["shapes"] == [(1, 1)] and out["plain_elastic"]["shapes"] == [None]
+    assert [r["pods"] for r in out["elastic"]["remesh"]] == [["pod0"], ["pod0", "pod1"]]

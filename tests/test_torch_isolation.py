@@ -1,7 +1,8 @@
 """The port stands apart from the JAX package and runs on CUDA unless asked.
 
-* Importing every ``repro_torch`` module and ``chip_smoke.py`` loads neither
-  jax nor any module of ``repro`` (checked in a fresh interpreter).
+* Importing every ``repro_torch`` module, ``chip_smoke.py`` and the ranks of
+  the multi-rank tests (``tests/multidevice_ranks.py``) loads neither jax
+  nor any module of ``repro`` (checked in a fresh interpreter).
 * The port's copy of each config equals the JAX package's, field for field.
 * Entry points asked for no device try CUDA, and raise where it is absent:
   the LM, the encoder-decoder, the Engine.
@@ -44,6 +45,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 sys.path.insert(0, {root!r})
 import chip_smoke
+sys.path.insert(0, {root!r} + "/tests")
+import multidevice_ranks  # the gloo ranks of tests/test_torch_multidevice.py
 import json, os, subprocess, time, torch  # what chip_smoke's phases import
 bad = sorted(n for n in sys.modules
              if n in ("jax", "jaxlib", "ml_dtypes", "repro") or n.startswith(("jax.", "repro.")))
