@@ -95,6 +95,17 @@ Phases, each of which fails the run on any fault:
    ``devices_per_pod=1`` on a (1, 1) mesh, scaled from one pod to two
    (logical pods on one rank), against a trainer with no process group:
    the same events, no stall, losses within 1e-6 relative.
+10. The families on a mesh (the MoE's pins and expert products on shards,
+   Mamba-2's mesh path, the encoder-decoder under fsdp, int8 moments on
+   shards) on another one-rank NCCL group and (1, 1, 1) mesh: (a) the f32
+   smoke configs of grok, scout, mamba2, zamba2 (tp) and seamless (fsdp),
+   and scout with int8 moments, against the same steps with no mesh
+   (losses within 1e-6 relative, masters within 2 lr); (b) llama4-scout at
+   1 of 48 layers with int8 moments and mamba2 at 16 of 64 layers, at
+   their published widths, ten steps each on the mesh and with no mesh
+   (each step a descent, losses within 1e-6 relative), ms/step of both,
+   peak memory and the busy share of a profiled mesh step; no kernel
+   launch in the phase.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script exits with
 a non-zero code, and prints no result, when no CUDA device is present.
@@ -683,8 +694,9 @@ def compare_to_floor(label, got, plain, exact):
 
 class RoutingLog:
     """While open, records every MoE routing of the model (``moe.route``):
-    each token's chosen experts, the chosen and kept ones as (B, S, E)
-    masks, and the call's drop share.  With ``pin`` (the calls of an
+    each token's chosen experts, the chosen and kept ones as (G, Tg, E)
+    masks (the tokens in their groups, in order), and the call's drop
+    share.  With ``pin`` (the calls of an
     earlier log), each call takes that call's choices in place of its own
     top-k."""
 
@@ -729,7 +741,7 @@ def routing_gate(label, got, want, n_layers):
         diverged = None
         for layer in range(n_layers):
             g, w = got[i + layer], want[i + layer]
-            flip = (g["chosen"] != w["chosen"]).any(-1)  # (B, S)
+            flip = (g["chosen"] != w["chosen"]).any(-1)  # (G, Tg): the tokens
             first = flip if diverged is None else flip & ~diverged
             differ = (g["kept"] != w["kept"]).any(-1)
             diverged = differ if diverged is None else diverged | differ
@@ -2285,6 +2297,229 @@ def mesh_phase(card, spec=MESH, device="cuda", cfg=None, seq_len=TRAIN["seq_len"
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the MoE, SSM, hybrid and encoder-decoder families on a mesh
+# (``mesh families:`` lines): the train step on DTensors under each
+# family's training policy (``policy_for``: tp for MoE, SSM and hybrid,
+# fsdp for the encoder-decoder), the MoE's pins and expert products on
+# shards, Mamba-2's mixer on each rank's rows, int8 moments on shards; on a
+# one-rank NCCL group and a (1, 1, 1) (pod, data, model) mesh, as phase 9
+# (their multi-rank behaviour is held on 8 gloo ranks on the CPU,
+# tests/test_torch_multidevice.py).  A one-rank mesh runs the same local
+# ops in the same order as no mesh, so the losses are expected equal
+# (held within 1e-6 relative, MESH_LOSS_RTOL) and the masters bit-equal
+# (held, at smoke size, as gate (a) of phase 5 holds the card against the
+# CPU: within 2 lr, at most one in a thousand beyond lr / 16).  That holds
+# only where a tensor's gradient sums the same terms in the same order on
+# both paths: an MoE input feeding the routing and the dispatch apart on
+# one device and through one grouping on the mesh put scout's first step
+# 3.7e-4 apart at lr 1e-2, and with int8 moments its losses 5.6e-4
+# relative apart in ten steps (a first reading), so ``moe_apply`` groups
+# the tokens once on both.
+# (a) Each family's f32 smoke config, and scout with int8 moments: two
+# steps (int8: one, as phase 5's TRAIN_PARITY) on the mesh against as many
+# with no mesh, at phase 5's parity lr and batch.
+# (b) Two models at their published widths, cut in depth, in bf16 with f32
+# masters: ten steps on the mesh against ten with no mesh at phase 5's lr,
+# each step a descent on its own batch.  Peaks reckoned from
+# ``param_count``, one run at a time:
+#   * llama4-scout, 1 of 48 layers: 3.237 B params (tied), int8 moments as
+#     the dry-run's ``opt_config`` gives the config (above 60 B).  f32
+#     masters 12.9 GB, int8 m and v 6.6 GB (a byte and 4/256 of one a
+#     param each), the masters' f32 gradients 12.9 GB in the backward
+#     (each freed as its bf16 copy, 6.5 GB in all, is made), the forward's
+#     bf16 casts of the layer (2.2 B params, 4.4 GB) and of the tied
+#     embedding (1.03 B, 2.1 GB), and in the update the f32 temporaries of
+#     the largest tensor (the experts' w_in, 0.67 B: ~4 x 2.7 GB): ~40 GB,
+#     ~45 GB with activations (2048 tokens).  Two layers (5.44 B) would
+#     need ~70 GB before activations.
+#   * mamba2-2.7b, 16 of 64 layers: 0.772 B params, f32 moments: 16 B a
+#     param with the f32 gradients, 12.4 GB, plus one layer's recomputed
+#     SSD blocks (4 x 80 heads x 2 chunks x 256^2 f32, 0.17 GB): ~14 GB.
+# The phase's gates: (a) and (b) as above, every loss finite, no kernel
+# launch (the train step takes the plain attention and SSD).
+MESH_FAMILIES = dict(
+    smoke=[("grok_1_314b", {}, 2), ("llama4_scout_17b_a16e", {}, 2), ("mamba2_2p7b", {}, 2),
+           ("zamba2_1p2b", {}, 2), ("seamless_m4t_large_v2", {}, 2),
+           ("llama4_scout_17b_a16e", dict(int8_state=True), 1)],
+    smoke_batch=4, smoke_seq=32,
+    full=[("llama4_scout_17b_a16e", dict(n_layers=1), dict(int8_state=True)),
+          ("mamba2_2p7b", dict(n_layers=16), {})],
+    full_steps=10)
+
+
+def _family_runs(cfg, ocfg, batches, device, mesh, *, full=False):
+    """The same steps from the same masters with no mesh and on ``mesh``
+    (one run at a time): per run each step's loss, ms and peak GB; at
+    smoke size the masters' largest difference and whether they are
+    bit-equal; with ``full`` the loss after each step on its batch and the
+    busy share of one more profiled step on the mesh instead (a copy of
+    the masters would not fit beside them)."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch.coord.elastic import state_specs
+    from repro_torch.models.sharding import axis_sizes, batch_spec, place, set_mesh, whole
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.train_loop import make_loss_fn, place_state
+
+    cuda = torch.device(device).type == "cuda"
+    policy = cfg.sharding_policy
+    loss_fn = make_loss_fn(cfg)
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def run(on_mesh):
+        free()
+        state = init_state(cfg, ocfg, torch.Generator(device=device).manual_seed(0), device)
+        specs, put = None, (lambda b: b)
+        if on_mesh:
+            sizes = axis_sizes(mesh)
+            specs = state_specs(cfg, state, sizes, policy=policy)
+            state = place_state(state, mesh, specs)
+
+            def put(b):
+                return {k: place(v, mesh, batch_spec(cfg, tuple(v.shape), sizes, policy=policy))
+                        for k, v in b.items()}
+        step = make_train_step(cfg, ocfg, grad_specs=specs.params if specs else None)
+        rows, prof = [], None
+        with set_mesh(mesh if on_mesh else None):
+            for b in batches:
+                b = put(b)
+                if cuda:
+                    state, row = timed_step(step, state, b)
+                else:
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, b)
+                    row = dict(loss=float(metrics["loss"]), ms=(time.perf_counter() - t0) * 1e3)
+                if full:  # with autograd on, as the step: no kernel
+                    row["loss_after"] = float(whole(loss_fn(state.params, b)[0]))
+                rows.append(row)
+            peak = max(r["peak_gb"] for r in rows) if cuda else None
+            masters = (None if full else
+                       {n: whole(p).clone() for n, p in state.params.named_parameters()})
+            if full and cuda and on_mesh:
+                _, prof = profile_train_step(step, state, put(batches[0]))
+        del state
+        return rows, masters, peak, prof
+
+    plain, plain_masters, plain_peak, _ = run(False)
+    meshed, masters, peak, prof = run(True)
+    diff = equal = far = total = None
+    if not full:
+        diff = max((masters[n] - w).abs().max().item() for n, w in plain_masters.items())
+        equal = all(torch.equal(masters[n], w) for n, w in plain_masters.items())
+        far = sum(int(((masters[n] - w).abs() > ocfg.lr / 16).sum())
+                  for n, w in plain_masters.items())
+        total = sum(w.numel() for w in plain_masters.values())
+    del masters, plain_masters
+    free()
+    losses, want = [r["loss"] for r in meshed], [r["loss"] for r in plain]
+    ms = [r["ms"] for r in meshed]
+    out = dict(arch=cfg.arch_id, n_layers=cfg.n_layers, dtype=cfg.dtype, policy=policy,
+               int8_state=ocfg.int8_state, losses=losses, plain_losses=want,
+               loss_max_rel_diff=max(abs(a / b - 1) for a, b in zip(losses, want)),
+               master_max_abs_diff=diff, masters_bit_equal=equal, masters_far=far,
+               masters_total=total,
+               ms_per_step=statistics.median(ms[1:] if len(ms) > 2 else ms),
+               plain_ms_per_step=statistics.median(
+                   [r["ms"] for r in plain][1:] if len(plain) > 2 else [r["ms"] for r in plain]),
+               peak_gb=peak, plain_peak_gb=plain_peak,
+               busy_share=prof["busy_share"] if prof else None)
+    if full:
+        out["losses_after"] = [r["loss_after"] for r in meshed]
+    return out
+
+
+def _family_faults(out, ocfg, full):
+    faults = []
+    name = f"{out['arch']} ({out['n_layers']} layers{', int8' if out['int8_state'] else ''})"
+    if not all(math.isfinite(x) for x in out["losses"] + out["plain_losses"]):
+        faults.append(f"{name}: a loss is not finite")
+    if not out["loss_max_rel_diff"] <= MESH_LOSS_RTOL:
+        faults.append(f"{name}: losses {out['losses']} vs no mesh {out['plain_losses']}")
+    if not full and not (out["master_max_abs_diff"] <= 2 * ocfg.lr
+                         and out["masters_far"] <= PARITY_PARAM_SHARE * out["masters_total"]):
+        faults.append(f"{name}: masters off by {out['master_max_abs_diff']:.3e} "
+                      f"({out['masters_far']} beyond lr / 16)")
+    if full and not all(a < b for a, b in zip(out["losses_after"], out["losses"])):
+        faults.append(f"{name}: a step did not descend: {out['losses']} -> {out['losses_after']}")
+    return faults
+
+
+def mesh_families_phase(card, spec=MESH_FAMILIES, device="cuda", full=None, full_opt=TRAIN_OPT,
+                        seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"]):
+    """Gates (a) and (b) of phase 10; raises unless each holds.  ``full``
+    (default: ``spec["full"]`` at published widths) takes (cfg, OptConfig
+    overrides) pairs.  Returns the readings."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharding import policy_for
+    from repro_torch.train import OptConfig
+    from repro_torch.train.data import DataConfig, TokenPipeline
+
+    t_phase = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    if full is None:
+        full = [(get_config(arch).replace(**cut), opt) for arch, cut, opt in spec["full"]]
+    backend = init_group(device)
+    faults, smoke_rows, full_rows = [], [], []
+    try:
+        mesh = DeviceMesh(device, torch.zeros((1, 1, 1), dtype=torch.int64),
+                          mesh_dim_names=("pod", "data", "model"))
+        for arch, over, steps in spec["smoke"]:
+            cfg = get_smoke_config(arch).replace(dtype="float32")
+            cfg = cfg.replace(sharding_policy=policy_for(cfg, "train"))
+            ocfg = OptConfig(lr=PARITY_LR, warmup_steps=1, **over)
+            pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=spec["smoke_seq"],
+                                            global_batch=spec["smoke_batch"]))
+            batches = [train_batch(cfg, pipe, i, device) for i in range(steps)]
+            out = _family_runs(cfg, ocfg, batches, device, mesh)
+            smoke_rows.append(out)
+            faults += _family_faults(out, ocfg, full=False)
+            log(f"mesh families: (a) {arch}{' int8' if ocfg.int8_state else ''} smoke, "
+                f"{out['policy']}: losses vs no mesh max rel diff {out['loss_max_rel_diff']:.3e}, "
+                f"masters max abs diff {out['master_max_abs_diff']:.3e} (bit-equal "
+                f"{out['masters_bit_equal']}) [{card}]")
+        for cfg, over in full:
+            cfg = cfg.replace(sharding_policy=policy_for(cfg, "train"))
+            ocfg = OptConfig(**{**full_opt, **over})
+            pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                            global_batch=global_batch))
+            batches = [train_batch(cfg, pipe, i, device) for i in range(spec["full_steps"])]
+            out = _family_runs(cfg, ocfg, batches, device, mesh, full=True)
+            full_rows.append(out)
+            faults += _family_faults(out, ocfg, full=True)
+            pairs = [[round(a, 5), round(b, 5)] for a, b in zip(out["losses"], out["losses_after"])]
+            log(f"mesh families: (b) {cfg.arch_id} {cfg.n_layers} layers "
+                f"({cfg.param_count() / 1e9:.3f} B params), {out['policy']}"
+                f"{', int8 moments' if ocfg.int8_state else ''}: each step's loss before and "
+                f"after it {json.dumps(pairs)}; "
+                f"losses vs no mesh max rel diff {out['loss_max_rel_diff']:.3e}; "
+                f"{out['ms_per_step']:.2f} ms/step on the mesh vs {out['plain_ms_per_step']:.2f} "
+                f"with no mesh, peak {out['peak_gb']} GB vs {out['plain_peak_gb']}, device busy "
+                f"{out['busy_share']} of a profiled mesh step [{card}]")
+    finally:
+        dist.destroy_process_group()
+    launched = {k: v - launches.get(k, 0) for k, v in ops.LAUNCHES.items()
+                if v != launches.get(k, 0)}
+    if launched:
+        faults.append(f"kernels launched: {launched}")
+    out = dict(card=card, backend=backend, mesh=[1, 1, 1], smoke=smoke_rows, full=full_rows,
+               launched=launched, seconds=time.perf_counter() - t_phase)
+    log(f"mesh families: kernel launches {launched or 'none'}; phase 10 took "
+        f"{out['seconds']:.1f} s [{card}]")
+    if faults:
+        raise AssertionError("mesh families: " + "; ".join(faults))
+    return out
+
 KERNELS = {
     "flash_prefill": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -2365,6 +2600,7 @@ def main() -> int:
     testbed = testbed_phase(card)
     testbed_s = time.perf_counter() - t0
     mesh = mesh_phase(card)
+    families = mesh_families_phase(card)
     log(card)
     for arch, (_, _, rates) in paths.items():
         log(f"rates {arch} [{card}]: prefill {rates['prefill_ms']:.2f} ms "
@@ -2401,6 +2637,14 @@ def main() -> int:
         f"{mesh['peak_gb']:.2f} GB, device busy {mesh['busy_share']:.1%} of a profiled step; "
         f"phase 9 took {mesh['seconds']:.1f} s")
     log("mesh:", json.dumps(mesh))
+    for row in families["full"]:
+        log(f"mesh families rates {row['arch']} ({row['n_layers']} layers, {row['policy']}"
+            f"{', int8 moments' if row['int8_state'] else ''}, one {families['backend']} rank) "
+            f"[{card}]: {row['ms_per_step']:.2f} ms/step on the (1, 1, 1) mesh vs "
+            f"{row['plain_ms_per_step']:.2f} with no mesh, peak {row['peak_gb']:.2f} GB, device "
+            f"busy {row['busy_share']:.1%} of a profiled step")
+    log(f"mesh families: phase 10 took {families['seconds']:.1f} s")
+    log("mesh families:", json.dumps(families))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

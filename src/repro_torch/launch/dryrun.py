@@ -14,11 +14,20 @@ shapes only, nothing allocated) and
     size (``torch.distributed``'s "fake" backend: ranks without peers);
     ``fits_hbm80g`` holds their sum against the H100's 80 GB.  Activations
     and gradients are not counted;
-  * the step's FLOPs and bytes come from ``trace_analysis.count`` of the
-    whole step run once on ``meta``, as one device would run it, and give
-    the roofline terms at one device on the H100's constants; at 256 and
-    512 devices the collective term is not measured (it needs the step run
-    on DTensors: ROADMAP Queue 1 item 11c) and stands as ``null``.
+  * at one device, the step's FLOPs and bytes come from
+    ``trace_analysis.count`` of the whole step run once on ``meta`` and give
+    the roofline terms on the H100's constants;
+  * a train cell at 256 or 512 devices runs the step itself on the fake
+    world (``mesh_train_count``): the meta state laid out by
+    ``state_specs``, the batch by ``batch_spec``, ``grad_specs`` the
+    parameters' specs, under ``set_mesh``.  ``count`` of that run gives
+    one device's FLOPs and bytes (its local ops, as the reference's
+    ``flops_per_device``) and the collectives it issues, which
+    ``roofline.collective_traffic`` charges by 8-GPU node
+    (``mesh.NODE_SIZE``): NVLink inside a node, InfiniBand across;
+  * a serving cell at 256 or 512 devices has no collective term yet (it
+    needs prefill and decode on a mesh: ROADMAP Queue 1 item 11e) and it
+    stands as ``null``; its FLOPs and bytes are the one-device step's.
 
 The cells are the reference's: ``production_config`` and ``opt_config``
 are its overrides, ``attn_impl="chunked"`` included, so the count is of
@@ -52,14 +61,17 @@ from ..models.sharding import (
     batch_spec,
     decode_state_specs,
     param_specs,
+    place,
     policy_for,
+    set_mesh,
     to_placements,
 )
 from ..serve import make_prefill_step
 from ..train import OptConfig, TrainState, make_train_step
 from ..train import optimizer as opt
+from ..train.train_loop import place_state
 from . import roofline as rl
-from .mesh import HBM_BYTES, PRODUCTION_MESHES, make_production_mesh
+from .mesh import HBM_BYTES, NODE_SIZE, PRODUCTION_MESHES, make_production_mesh
 from .trace_analysis import StepCount, count
 
 # Mesh name -> (shape, axis names); "1" is one device.
@@ -69,6 +81,8 @@ MESHES: Dict[str, Tuple[Tuple[int, ...], Tuple[str, ...]]] = {
     "2x16x16": PRODUCTION_MESHES[True],
 }
 NO_TRAFFIC = {"ici": 0.0, "dcn": 0.0, "by_op": {}, "n": 0}
+SERVING_NOTE = ("not measured: needs prefill and decode on a mesh "
+                "(ROADMAP Queue 1 item 11e)")
 
 
 # --------------------------------------------------------------------------
@@ -130,11 +144,14 @@ def fake_world(n: int) -> Iterator[None]:
 
 
 def make_mesh(name: str) -> DeviceMesh:
-    """The named mesh over the current (fake) world, on "cpu" ranks."""
+    """The named mesh over the current (fake) world: one "cpu" rank, or the
+    production mesh of "cuda" ranks, so that DTensor issues the collectives
+    it issues on NCCL (an all-to-all where a CPU mesh gathers); its tensors
+    stay on meta."""
     if name == "1":
         shape, axes = MESHES[name]
         return init_device_mesh("cpu", shape, mesh_dim_names=axes)
-    return make_production_mesh(multi_pod=name == "2x16x16", device_type="cpu")
+    return make_production_mesh(multi_pod=name == "2x16x16", device_type="cuda")
 
 
 def _leaves(tensors: Any, specs: Any) -> Iterator[Tuple[torch.Tensor, Any]]:
@@ -213,6 +230,34 @@ def serving_trees(cfg: ModelConfig, batch: int, max_len: int):
     return model, state, trees, specs_for
 
 
+def batch_trees(cfg: ModelConfig, shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, torch.Tensor]:
+    """A batch on meta: token ids in int32, the encoder's frames in the
+    config's type."""
+    return {n: torch.zeros(s, dtype=torch.int32 if n in ("tokens", "targets")
+                           else torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
+                           device="meta")
+            for n, s in shapes.items()}
+
+
+def mesh_train_count(cfg: ModelConfig, ocfg: OptConfig, mesh: DeviceMesh,
+                     batch: Dict[str, torch.Tensor], *, microbatches: int = 1,
+                     policy: Optional[str] = None) -> StepCount:
+    """``count`` of one train step on ``mesh`` (a fake world's, on meta):
+    the meta state laid out by ``state_specs``, ``batch`` (meta tensors) by
+    ``batch_spec``, the gradients pinned to the parameters' specs, under
+    ``set_mesh``: one rank's FLOPs, bytes and collectives."""
+    policy = policy or policy_for(cfg, "train")
+    sizes = axis_sizes(mesh)
+    state = meta_train_state(cfg, ocfg)
+    specs = state_specs(cfg, state, sizes, policy)
+    state = place_state(state, mesh, specs)
+    placed = {n: place(t, mesh, batch_spec(cfg, tuple(t.shape), sizes, policy))
+              for n, t in batch.items()}
+    step = make_train_step(cfg, ocfg, microbatches=microbatches, grad_specs=specs.params)
+    with set_mesh(mesh):
+        return count(step, state, placed)
+
+
 def build_cell(arch: str, shape: str):
     """The cell on meta: ``(fn, args, trees, specs_for, info)``.  ``fn(*args)``
     is its step; ``trees`` maps "params", "optimizer" or "decode_state",
@@ -244,9 +289,7 @@ def build_cell(arch: str, shape: str):
             fn, n_tokens = model.decode_step, batch
         info.update(tokens=n_tokens,
                     model_flops=2 * cfg.param_count(active_only=True) * n_tokens)
-    trees["batch"] = {n: torch.zeros(s, dtype=torch.int32 if n in ("tokens", "targets")
-                                     else torch.bfloat16, device="meta")
-                      for n, s in shapes.items()}
+    trees["batch"] = batch_trees(cfg, shapes)
 
     def specs_for(axes):
         return {**state_specs_for(axes),
@@ -293,15 +336,28 @@ def run_cell(arch: str, shape: str, *, meshes: Sequence[str] = ("16x16",),
         return arts
 
     fn, args, trees, specs_for, info = build_cell(arch, shape)
-    t0 = time.time()
-    step: StepCount = count(fn, *args)
-    count_s = time.time() - t0
-    roof = rl.roofline_terms(flops_per_device=step.flops, bytes_per_device=step.bytes,
-                             traffic=NO_TRAFFIC)
+    one = None  # the whole step on one device, counted once
     for name in meshes:
         n_dev = math.prod(MESHES[name][0])
+        on_mesh = n_dev > 1 and info["kind"] == "train"
+        t0 = time.time()
         with fake_world(n_dev):
-            per_dev = cell_bytes(trees, specs_for, make_mesh(name))
+            dmesh = make_mesh(name)
+            per_dev = cell_bytes(trees, specs_for, dmesh)
+            if on_mesh:
+                cfg_p = production_config(arch, shape)
+                step = mesh_train_count(cfg_p, opt_config(cfg_p), dmesh, trees["batch"],
+                                        microbatches=info["microbatches"],
+                                        policy=info["policy"])
+        if not on_mesh:
+            if one is None:
+                t0 = time.time()
+                one = (count(fn, *args), time.time() - t0)
+            step, count_s = one
+        else:
+            count_s = time.time() - t0
+        traffic = (rl.collective_traffic(step.collectives, n_devices=n_dev, pod_size=NODE_SIZE)
+                   if on_mesh else NO_TRAFFIC)
         art = {
             **base, **info, "mesh": name, "n_devices": n_dev,
             "bytes_per_device": per_dev,
@@ -310,14 +366,16 @@ def run_cell(arch: str, shape: str, *, meshes: Sequence[str] = ("16x16",),
             "step_bytes": step.bytes,
             "count_s": round(count_s, 2),
             "top_ops": step.top_ops(10),
-            "useful_flops_ratio": info["model_flops"] / step.flops if step.flops else 0.0,
-            # the whole step on one H100
-            "roofline": roof,
-            "collective": (None if n_dev > 1 else NO_TRAFFIC),
+            "useful_flops_ratio": (info["model_flops"] / (step.flops * (n_dev if on_mesh else 1))
+                                   if step.flops else 0.0),
+            "roofline": rl.roofline_terms(flops_per_device=step.flops,
+                                          bytes_per_device=step.bytes, traffic=traffic),
+            "collective": None if (n_dev > 1 and not on_mesh) else traffic,
         }
-        if n_dev > 1:
-            art["collective_note"] = ("not measured: needs the step run on DTensors "
-                                      "(ROADMAP Queue 1 item 11c)")
+        if on_mesh:  # the counts are one rank's share of the step on the mesh
+            art.update(count_scope="per device", collectives=step.collectives)
+        elif n_dev > 1:
+            art["collective_note"] = SERVING_NOTE
         arts[name] = art
         _write(art, out_dir)
         print(rl.summarize_artifact(art))

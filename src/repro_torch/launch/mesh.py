@@ -41,3 +41,6 @@ HBM_BYTES = 80e9  # HBM3 capacity
 L2_BYTES = 50e6  # L2 cache (NVIDIA's Hopper architecture whitepaper)
 ICI_BW = 450e9  # B/s a direction: NVLink 4, 900 GB/s both directions a GPU
 DCN_BW = 50e9  # B/s: one 400 Gb/s InfiniBand NDR port a GPU (the DGX H100 layout)
+# GPUs that share NVLink: a DGX H100 node.  A collective whose group spans
+# two nodes is charged to DCN_BW (roofline.collective_traffic's pod_size).
+NODE_SIZE = 8

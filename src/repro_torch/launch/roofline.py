@@ -8,9 +8,10 @@ The port of ``repro.launch.roofline``, with the same keys and arithmetic:
 
 On an H100 cluster the two links are NVLink inside an 8-GPU node (``ici``,
 ``ICI_BW``) and the InfiniBand network between nodes (``dcn``,
-``DCN_BW``).  The FLOPs and bytes come from ``trace_analysis.count``; the
-collectives from a run of the step on DTensors, which the dry-run does not
-make yet, so its collective term is not measured.
+``DCN_BW``).  The FLOPs, bytes and collectives come from
+``trace_analysis.count``: of the whole step at one device, and of one
+rank's share of the step run on DTensors for a train cell on a mesh (the
+dry-run's serving cells on a mesh have no collective term yet).
 
 Ring-model traffic per collective (g = replica-group size):
 
@@ -23,7 +24,8 @@ Ring-model traffic per collective (g = replica-group size):
 Traffic whose replica groups span a ``pod_size`` boundary (member ids in
 two pods, or groups of exactly the pod count) is charged to ``dcn``,
 everything else to ``ici``.  On H100 machines the boundary that decides
-the link is the node of 8 GPUs that share NVLink, not the reference's pod.
+the link is the node of 8 GPUs that share NVLink (``mesh.NODE_SIZE``, the
+dry-run's ``pod_size``), not the reference's pod.
 """
 
 from __future__ import annotations

@@ -70,6 +70,21 @@ def partial_where_sharded(placements) -> list:
     return [Partial() if isinstance(p, Shard) else Replicate() for p in placements]
 
 
+def on_mesh(mesh, base=None, **dims) -> list:
+    """Placements over ``mesh``: ``dims`` maps a mesh dim's name to its
+    placement, the others are ``base``'s (``Replicate`` where None)."""
+    base = base or [Replicate()] * mesh.ndim
+    return [dims.get(name, pl) for name, pl in zip(mesh.mesh_dim_names, base)]
+
+
+def mapped(fn, out_placements, in_placements, in_grad_placements, *args):
+    """``local_map`` of ``fn`` over ``args`` (the first a DTensor, whose mesh
+    it runs on), the inputs redistributed to ``in_placements``."""
+    return local_map(fn, out_placements=out_placements, in_placements=in_placements,
+                     in_grad_placements=in_grad_placements, device_mesh=args[0].device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def local_with_replicated(fn, x: DTensor, x_placements, *replicated: Tensor,
                           out_placements=None):
     """``fn(x_local, *replicated_local)`` on each rank: ``x`` laid out by

@@ -14,6 +14,23 @@ paths runs it follows ``cfg.attn_impl``, as attention does
 
 Decode is the O(1)-per-token recurrent form over that state plus a rolling
 window of the last W-1 conv inputs.
+
+On a mesh (x a DTensor: the tp training policy of the SSM and hybrid
+families) x keeps its split of the batch over ('pod','data') and its
+sequence is gathered (the SSD scan runs over the whole sequence, and the
+causal conv reaches across a sequence shard's edge), and the heads ride
+'model': in_proj's output dim concatenates z, x, B, C and dt, so its
+'model' slice would mix pieces, and instead each rank takes its heads'
+columns of z, x and dt (and B and C whole: one group) from the weight
+gathered at use (``_heads``), and runs the conv, the SSD and the gate on
+them.  The gated norm's mean over the whole d_inner is reduced over
+'model'; out_proj takes each rank's rows of d_inner, a partial sum over
+'model'.  Its collectives a layer: the all-gather of x's sequence over
+'model' and of each mixer weight over the axes its spec splits; the norm's
+all-reduce; the output's reduce-scatter back into x's sequence shards; in
+the backward the gradients' reductions to the weights' layouts and to x's.
+Where the heads do not divide 'model' (and for prefill's final state and
+conv tail), the mixer runs whole on each rank's rows.
 """
 
 from __future__ import annotations
@@ -22,10 +39,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from ..kernels import ops as kops
+from . import sharding
 from .config import ModelConfig
-from .layers import _kernel_impl, _normal, _project, rms_norm
+from .layers import (_kernel_impl, _normal, _project, kept_shards, local_with_replicated, mapped,
+                     on_mesh, partial_where_sharded, rms_norm)
 
 Tensor = torch.Tensor
 
@@ -133,21 +153,14 @@ def _conv1d(xBC: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return out + b
 
 
-def mamba_apply(
-    cfg: ModelConfig,
-    p,
-    x: Tensor,
-    h0: Optional[Tensor] = None,
-    *,
-    return_conv_tail: bool = False,
-):
-    """Full-sequence forward.  x: (B, S, D) -> (B, S, D), final ssm state;
-    with ``return_conv_tail`` also the last W-1 pre-conv activations, which
-    seed the decode's rolling conv window."""
+def _mixer(cfg: ModelConfig, p, x: Tensor, h0: Optional[Tensor], nh: int):
+    """in_proj, the causal conv, the SSD and the gate over ``nh`` heads
+    (``p`` holds their columns): (y * silu(z) (B, S, nh * hd) in x's type,
+    the final state, the pre-conv x, B, C)."""
     B, S, D = x.shape
-    di, N, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    zxbcdt = _project(x, p["in_proj"])
-    z, xBC_pre, dt = _split_proj(cfg, zxbcdt)
+    N, hd = cfg.ssm_state, cfg.ssm_head_dim
+    di = nh * hd
+    z, xBC_pre, dt = torch.split(_project(x, p["in_proj"]), [di, di + 2 * N, nh], dim=-1)
     xBC = F.silu(_conv1d(xBC_pre, p["conv_w"], p["conv_b"]))
     xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, nh)
@@ -158,12 +171,95 @@ def mamba_apply(
     y, h = ssd(xdt, a, Bm, Cm, cfg.ssm_chunk, h0)
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    return y * F.silu(z), h, xBC_pre
+
+
+def _heads(cfg: ModelConfig, p, m: int, k: int):
+    """The mixer's weights of heads [m k, (m + 1) k): their columns of z, x
+    and dt in in_proj, of x in the conv, and B and C whole (one group)."""
+    di, N, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    dev = p["in_proj"].device
+
+    def span(start, n):
+        return torch.arange(start, start + n, device=dev)
+
+    dl = k * hd
+    xs = [span(di + m * dl, dl), span(2 * di, 2 * N)]
+    cols = torch.cat([span(m * dl, dl), *xs, span(2 * di + 2 * N + m * k, k)])
+    conv = torch.cat([span(m * dl, dl), span(di, 2 * N)])
+    heads = slice(m * k, (m + 1) * k)
+    return {"in_proj": p["in_proj"][:, cols], "conv_w": p["conv_w"][:, conv],
+            "conv_b": p["conv_b"][conv], "A_log": p["A_log"][heads], "D": p["D"][heads],
+            "dt_bias": p["dt_bias"][heads]}
+
+
+_MIXER = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias")
+
+
+def mamba_apply(
+    cfg: ModelConfig,
+    p,
+    x: Tensor,
+    h0: Optional[Tensor] = None,
+    *,
+    return_conv_tail: bool = False,
+):
+    """Full-sequence forward.  x: (B, S, D) -> (B, S, D), final ssm state;
+    with ``return_conv_tail`` also the last W-1 pre-conv activations, which
+    seed the decode's rolling conv window.  On a mesh, as the module's
+    docstring says."""
+    if isinstance(x, DTensor):
+        return _mamba_apply_mesh(cfg, p, x, h0, return_conv_tail)
+    S = x.shape[1]
+    g, h, xBC_pre = _mixer(cfg, p, x, h0, cfg.n_ssm_heads)
+    y = rms_norm(g, p["norm"])
     out = _project(y, p["out_proj"]).to(x.dtype)
     if return_conv_tail:
         W = cfg.ssm_conv_width
         return out, h, xBC_pre[:, S - (W - 1) :, :]
     return out, h
+
+
+def _mamba_apply_mesh(cfg: ModelConfig, p, x: DTensor, h0, return_conv_tail: bool):
+    mesh = x.device_mesh
+    rows = kept_shards(x, (0,))  # the batch's split kept, the sequence gathered
+    M = sharding.axis_sizes(mesh).get("model", 1)
+    nh = cfg.n_ssm_heads
+    if M == 1 or nh % M or h0 is not None or return_conv_tail:
+        # The mixer whole on each rank's rows.
+        names = list(p)
+
+        def whole(xl, *ws):
+            return mamba_apply(cfg, dict(zip(names, ws)), xl, h0,
+                               return_conv_tail=return_conv_tail)
+
+        return local_with_replicated(whole, x, rows, *(p[n] for n in names),
+                                     out_placements=(rows,) * (3 if return_conv_tail else 2))
+    # The heads over 'model': each rank runs its nh / M heads.  A rank's
+    # heads use all of x and of B and C: their gradients are partial sums
+    # over 'model' (and the weights' over the batch's axes).
+    k = nh // M
+    weights_grad = on_mesh(mesh, partial_where_sharded(rows), model=Partial())
+
+    def heads(xl, *ws):
+        sl = _heads(cfg, dict(zip(_MIXER, ws)), mesh["model"].get_local_rank(), k)
+        g, h, _ = _mixer(cfg, sl, xl, None, k)
+        return g, h
+
+    g, h = mapped(heads, (on_mesh(mesh, rows, model=Shard(2)), on_mesh(mesh, rows, model=Shard(1))),
+                  (rows,) + (on_mesh(mesh),) * len(_MIXER),
+                  (on_mesh(mesh, rows, model=Partial()),) + (weights_grad,) * len(_MIXER),
+                  x, *(p[n] for n in _MIXER))
+    # The gated norm over the whole d_inner (its mean reduced over 'model'),
+    # then out_proj on each rank's rows of it: a partial sum over 'model',
+    # reduced into x's layout.
+    y = rms_norm(g, p["norm"])
+    y_p = on_mesh(mesh, rows, model=Shard(2))
+    out = mapped(_project, on_mesh(mesh, rows, model=Partial()),
+                 (y_p, on_mesh(mesh, model=Shard(0))),
+                 (y_p, on_mesh(mesh, partial_where_sharded(rows), model=Shard(0))),
+                 y, p["out_proj"])
+    return out.to(x.dtype).redistribute(mesh, x.placements), h
 
 
 # --------------------------------------------------------------------------

@@ -5,8 +5,22 @@ The port of ``repro.models.moe``.  Tokens are split into groups of
 (G, Tg, E, C) tensor; expert weights are (E, D, F) batched products.
 Top-2 (grok-1) renormalises the top-k gates; top-1 (llama4-scout) also
 sends every token through a shared dense MLP of ``d_ff * n_shared_experts``.
-The reference has no MoE kernel, so this is plain PyTorch; one device, so
-the reference's sharding constraints have no counterpart.
+The reference has no MoE kernel, so this is plain PyTorch.
+
+On a mesh (x a DTensor, under ``sharding.set_mesh``) the groups are laid
+out over the ('pod','data') axes where their count divides, a group never
+split (``route``'s cumulative sum runs over a whole group), and each rank
+routes and dispatches its own groups.  The dispatched activations are
+pinned as the reference pins them (``_pin``: ``xe`` and ``ye`` with the
+experts over 'model' under expert parallelism, ``act(g) * h`` with the
+expert FFN width over 'model' otherwise), through ``sharding._constrain``.
+The expert products run on each rank's shards (``local_map``): under
+expert parallelism (E divides 'model') a rank holds E/model experts whole
+and the combine's sum over experts is reduced over 'model'; otherwise
+(TP-within-expert) a rank holds an F/model slice of every expert, and
+``ye`` is reduced over 'model' at its pin.  The weights are gathered over
+the other axes at use.  The aux metrics are means over all groups (DTensor
+reductions over the mesh).
 """
 
 from __future__ import annotations
@@ -15,9 +29,12 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
+from . import sharding
 from .config import ModelConfig
-from .layers import _normal, activation_fn, mlp_apply, mlp_init
+from .layers import (_normal, activation_fn, local_with_replicated, mapped, mlp_apply, mlp_init,
+                     on_mesh)
 
 Tensor = torch.Tensor
 
@@ -59,6 +76,14 @@ def _capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
     return max(cap, cfg.top_k)
 
 
+def _group_size(cfg: ModelConfig, T: int) -> int:
+    """The tokens of a group, of T in all: ``min(moe_group_size, T)``,
+    which must divide T."""
+    Tg = min(cfg.moe_group_size, T)
+    assert T % Tg == 0, f"token count {T} not divisible by group size {Tg}"
+    return Tg
+
+
 class Routing(NamedTuple):
     probs: Tensor  # (G, Tg, E) f32 router probabilities
     gates: Tensor  # (G, Tg, k) renormalised gates, zero where dropped
@@ -86,8 +111,7 @@ def route(cfg: ModelConfig, router: Tensor, x: Tensor, *, dropless: bool = False
     occur, and the tests do not depend on them."""
     B, S, D = x.shape
     T = B * S
-    Tg = min(cfg.moe_group_size, T)
-    assert T % Tg == 0, f"token count {T} not divisible by group size {Tg}"
+    Tg = _group_size(cfg, T)
     G = T // Tg
     capacity = Tg if dropless else _capacity(cfg, Tg)
     E, k = cfg.n_experts, cfg.top_k
@@ -104,38 +128,144 @@ def route(cfg: ModelConfig, router: Tensor, x: Tensor, *, dropless: bool = False
     return Routing(probs, gates * keep, experts, onehot, pos, keep, capacity)
 
 
+def _dispatch_combine(r: Routing, dtype) -> Tuple[Tensor, Tensor]:
+    """The one-hot dispatch and combine tensors (G, Tg, E, C) of a routing,
+    in ``dtype``.  A position past C has no slot: JAX's one_hot gives it a
+    zero row, torch's raises, so it takes the extra class C, which is cut
+    off.  Both are cast to x's type before the expert products, as the
+    reference does: the bf16 rounding of the combine weights is part of
+    the result."""
+    C = r.capacity
+    pos_oh = F.one_hot(r.pos.long().clamp(max=C), C + 1)[..., :C].float()
+    dispatch = torch.einsum("gtke,gtkc->gtec", r.onehot, pos_oh * r.keep[..., None])
+    combine = torch.einsum("gtk,gtke,gtkc->gtec", r.gates, r.onehot, pos_oh)
+    return dispatch.to(dtype), combine.to(dtype)
+
+
+def _aux(cfg: ModelConfig, probs: Tensor, onehot: Tensor, keep: Tensor) -> Dict[str, Tensor]:
+    """The load-balance loss and the dropped share, means over all groups."""
+    me = probs.mean(dim=(0, 1))  # mean router probability per expert
+    ce = onehot.sum(2).mean(dim=(0, 1))  # share of tokens routed per expert
+    return {"moe_lb_loss": cfg.n_experts * torch.sum(me * ce),
+            "moe_drop_frac": 1.0 - keep.float().mean()}
+
+
 def moe_apply(cfg: ModelConfig, p, x: Tensor, *, dropless: bool = False
               ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x (B, S, D) -> (y (B, S, D), aux {moe_lb_loss, moe_drop_frac}).
 
     ``dropless`` sets the capacity to the group size, so no token is
     dropped: the decode step's setting."""
+    if isinstance(x, DTensor):
+        return _moe_apply_mesh(cfg, p, x, dropless=dropless)
     B, S, D = x.shape
-    E = cfg.n_experts
-    r = route(cfg, p["router"], x, dropless=dropless)
-    G, Tg, C = r.probs.shape[0], r.probs.shape[1], r.capacity
-    xg = x.reshape(G, Tg, D)
-
-    # One-hot dispatch and combine (G, Tg, E, C).  A position past C has no
-    # slot: JAX's one_hot gives it a zero row, torch's raises, so it takes
-    # the extra class C, which is cut off.
-    pos_oh = F.one_hot(r.pos.long().clamp(max=C), C + 1)[..., :C].float()
-    dispatch = torch.einsum("gtke,gtkc->gtec", r.onehot, pos_oh * r.keep[..., None])
-    combine = torch.einsum("gtk,gtke,gtkc->gtec", r.gates, r.onehot, pos_oh)
-
-    # Both cast to x's type before the expert products, as the reference
-    # does: the bf16 rounding of the combine weights is part of the result.
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
+    Tg = _group_size(cfg, B * S)
+    # The groups are made once, for the routing and the dispatch, as on a
+    # mesh: x's gradient then sums the same terms in the same order there.
+    xg = x.reshape(-1, Tg, D)
+    r = route(cfg, p["router"], xg, dropless=dropless)
+    dispatch, combine = _dispatch_combine(r, x.dtype)
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
     act = activation_fn(cfg.activation)
     h = torch.einsum("gecd,edf->gecf", xe, p["w_in"])
     g = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
     ye = torch.einsum("gecf,efd->gecd", act(g) * h, p["w_out"])
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ye).reshape(B, S, D)
+    y = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(B, S, D)
     if cfg.n_shared_experts:
         y = y + mlp_apply(cfg, p["shared"], x)
+    return y, _aux(cfg, r.probs, r.onehot, r.keep)
 
-    me = r.probs.mean(dim=(0, 1))  # mean router probability per expert
-    ce = r.onehot.sum(2).mean(dim=(0, 1))  # share of tokens routed per expert
-    aux = {"moe_lb_loss": E * torch.sum(me * ce),
-           "moe_drop_frac": 1.0 - r.keep.float().mean()}
-    return y, aux
+
+# --------------------------------------------------------------------------
+# On a mesh
+# --------------------------------------------------------------------------
+def _pin(cfg: ModelConfig, t: Tensor, spec_tail) -> Tensor:
+    """The reference's ``pin``: token groups over the dp axes where their
+    count divides, then ``spec_tail`` for the other dims, each axis kept
+    where it divides its dim."""
+    if cfg.sharding_policy == "none":
+        return t
+    sizes = sharding._mesh_sizes()
+    if not sizes:
+        return t
+    dp = sharding._dp(sizes)
+    g_ax = dp if (dp and t.shape[0] % sharding._size(sizes, dp) == 0) else None
+    tail = [ax if (ax is None or t.shape[1 + i] % sizes.get(ax, 1) == 0) else None
+            for i, ax in enumerate(spec_tail)]
+    return sharding._constrain(t, sharding._pad((g_ax, *tail), t.dim()))
+
+
+def _moe_apply_mesh(cfg: ModelConfig, p, x: DTensor, *, dropless: bool):
+    """``moe_apply`` on a DTensor x, laid out as the module's docstring says."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    B, S, D = x.shape
+    Tg = _group_size(cfg, B * S)
+    G, E, Fd = B * S // Tg, cfg.n_experts, p["w_in"].shape[-1]
+    sizes = sharding.axis_sizes(mesh)
+    dp = sharding._dp(sizes)
+    M = sizes.get("model", 1)
+    ep = "model" if (M > 1 and E % M == 0) else None
+    f_split = ep is None and M > 1 and Fd % M == 0
+
+    # The groups, G over dp where it divides.  Where the batch splits over
+    # dp as the groups do, each rank groups its own rows; else x is
+    # gathered whole, grouped, and the groups sliced.
+    gdp = {a: Shard(0) for a in dp} if (dp and G % sharding._size(sizes, dp) == 0) else {}
+    aligned = bool(gdp) and B % sharding._size(sizes, dp) == 0
+    rows = on_mesh(mesh, **(gdp if aligned else {}))
+    gp = on_mesh(mesh, **gdp)
+    xg = mapped(lambda t: t.reshape(-1, Tg, D), rows, (rows,), (rows,), x).redistribute(mesh, gp)
+
+    def local_route(xl, router):
+        r = route(cfg, router, xl, dropless=dropless)
+        return (*_dispatch_combine(r, xl.dtype), r.probs, r.onehot, r.keep.float())
+
+    dispatch, combine, probs, onehot, keep = local_with_replicated(
+        local_route, xg, gp, p["router"], out_placements=(gp,) * 5)
+    xe = mapped(lambda d, t: torch.einsum("gtec,gtd->gecd", d, t), gp, (gp, gp), (gp, gp),
+                 dispatch, xg)
+
+    # Each product's placements: its inputs', its output's, and the
+    # gradients' of its inputs (a weight's is a partial sum over the dims
+    # that split the groups).
+    if ep:
+        xe_p = h_p = ye_p = on_mesh(mesh, **gdp, model=Shard(1))
+        w_in_p = w_out_p = on_mesh(mesh, model=Shard(0))
+        xe_grad, ye_out = xe_p, ye_p
+    elif f_split:
+        xe_p = ye_p = gp
+        w_in_p, w_out_p = on_mesh(mesh, model=Shard(2)), on_mesh(mesh, model=Shard(1))
+        h_p = on_mesh(mesh, **gdp, model=Shard(3))
+        xe_grad = ye_out = on_mesh(mesh, **gdp, model=Partial())
+    else:
+        xe_p = h_p = ye_p = xe_grad = ye_out = gp
+        w_in_p = w_out_p = on_mesh(mesh)
+
+    def grad_of(w_p):
+        return [Partial() if n in gdp else pl for n, pl in zip(names, w_p)]
+
+    def up(a, w):
+        return torch.einsum("gecd,edf->gecf", a, w)
+
+    act = activation_fn(cfg.activation)
+    xe = _pin(cfg, xe, (ep, None, None))
+    h = mapped(up, h_p, (xe_p, w_in_p), (xe_grad, grad_of(w_in_p)), xe, p["w_in"])
+    g = mapped(up, h_p, (xe_p, w_in_p), (xe_grad, grad_of(w_in_p)), xe, p["w_gate"])
+    h = _pin(cfg, act(g) * h, (ep, None, "model" if ep is None else None))
+    ye = mapped(lambda a, w: torch.einsum("gecf,efd->gecd", a, w), ye_out,
+                 (h_p, w_out_p), (h_p, grad_of(w_out_p)), h, p["w_out"])
+    ye = _pin(cfg, ye, (ep, None, None))
+
+    # The combine and the groups back to rows, on the rows' layout; under
+    # ep each rank sums its own experts' share, a partial sum over 'model'.
+    keep_g = gdp if aligned else {}
+    comb_p = on_mesh(mesh, **keep_g, **({"model": Shard(2)} if ep else {}))
+    ye_in = on_mesh(mesh, **keep_g, **({"model": Shard(1)} if ep else {}))
+    y_p = on_mesh(mesh, **keep_g, **({"model": Partial()} if ep else {}))
+    y = mapped(lambda c, e: torch.einsum("gtec,gecd->gtd", c, e).reshape(-1, S, D), y_p,
+                (comb_p, ye_in), (comb_p, ye_in), combine, ye)
+    y = y.redistribute(mesh, x.placements)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(cfg, p["shared"], x)
+    return y, _aux(cfg, probs, onehot, keep)

@@ -10,7 +10,15 @@ of the f32 masters or moments would not fit beside the first.
 
 On a mesh the masters, moments and gradients are DTensors: the update runs
 elementwise on each rank's shards, op for op as on one device, and the
-global norm sums each rank's local squares over the mesh.
+global norm sums each rank's local squares over the mesh.  With
+``int8_state`` the ``q``/``s`` pairs are laid out as
+``coord.elastic.state_specs`` gives them (the moment's lead dims as the
+parameter's, its last dim's split on the block-count dim where it
+divides); a rank dequantises, updates and requantises its own shard where
+that shard is a whole number of the reference's blocks of the whole
+tensor (the last dim whole, or split where it is a multiple of the
+block), and elsewhere gathers the last dim first and keeps its slice of
+the new ``q``/``s``: the same blocks, so the same bits, as on one device.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 Tensor = torch.Tensor
 
@@ -76,6 +84,34 @@ def _dq8(q: Tensor, scale: Tensor, shape) -> Tensor:
     if nb * block != last:
         flat = flat[..., :last]
     return flat.reshape(shape)
+
+
+def _q8_layout(q: Tensor, shape, block: int):
+    """The placements, over the moment's dims, of a rank's share of the f32
+    moment whose int8 ``q`` is ``q``: q's own (its lead dims are the
+    moment's, its block-count dim stands for the moment's last), with a
+    split of the last dim kept only where that dim is a whole number of
+    blocks, so each shard is whole blocks; None for a plain ``q``."""
+    if not isinstance(q, DTensor):
+        return None
+    last = len(shape) - 1
+    return [Replicate() if (isinstance(pl, Shard) and pl.dim == last and shape[-1] % block)
+            else pl for pl in q.placements]
+
+
+def _q8_into(x: Tensor, like: Mapping[str, Tensor], lay, block: int) -> Dict[str, Tensor]:
+    """``x`` (a rank's share of the moment in ``lay``) quantised, laid out
+    as ``like``'s ``q`` and ``s``."""
+    q, s = _q8(x, block)
+    if lay is None:
+        return {"q": q, "s": s}
+    out = {}
+    for key, t in (("q", q), ("s", s)):
+        ref = like[key]
+        d = DTensor.from_local(t, ref.device_mesh, lay, run_check=False, shape=ref.shape,
+                               stride=ref.stride())
+        out[key] = d.redistribute(ref.device_mesh, ref.placements)
+    return out
 
 
 class AdamState(NamedTuple):
@@ -165,19 +201,21 @@ def update(
     new_m, new_v = {}, {}
     for name, p in params.items():
         m, v = state.m[name], state.v[name]
-        if isinstance(p, DTensor) and cfg.int8_state:
-            raise NotImplementedError("int8 moments on a mesh")
         # On a mesh the update runs on the moments' shards (ZeRO: they may
         # split what the parameter replicates), the gradient and the
         # master resharded to them; the master's new values go back to
         # its own layout.
-        lay = m.placements if isinstance(m, DTensor) else getattr(p, "placements", None)
+        if cfg.int8_state:
+            lay = _q8_layout(m["q"], p.shape, cfg.int8_block)
+        else:
+            lay = m.placements if isinstance(m, DTensor) else getattr(p, "placements", None)
         g = _local(grads[name], lay).float() * scale
-        m_f, v_f = _local(m, lay), _local(v, lay)
         p_l = _local(p, lay)
         if cfg.int8_state:
-            m_f = _dq8(m["q"], m["s"], p.shape)
-            v_f = _dq8(v["q"], v["s"], p.shape)
+            m_f = _dq8(_local(m["q"], lay), _local(m["s"], lay), p_l.shape)
+            v_f = _dq8(_local(v["q"], lay), _local(v["s"], lay), p_l.shape)
+        else:
+            m_f, v_f = _local(m, lay), _local(v, lay)
         # The reference's expressions, op for op: b1*m + (1-b1)*g,
         # b2*v + ((1-b2)*g)*g, then mh / (sqrt(vh) + eps) + wd*p.
         m_f = m_f.mul_(cfg.b1).add_((1 - cfg.b1) * g)
@@ -193,9 +231,8 @@ def update(
         p_l = p.to_local() if isinstance(p, DTensor) else p
         p_l.sub_(delta)
         if cfg.int8_state:
-            qm, sm = _q8(m_f, cfg.int8_block)
-            qv, sv = _q8(v_f, cfg.int8_block)
-            new_m[name], new_v[name] = {"q": qm, "s": sm}, {"q": qv, "s": sv}
+            new_m[name] = _q8_into(m_f, m, lay, cfg.int8_block)
+            new_v[name] = _q8_into(v_f, v, lay, cfg.int8_block)
         else:
             new_m[name], new_v[name] = m, v
     metrics = {"grad_norm": gnorm, "lr": lr}

@@ -27,9 +27,20 @@ MESH_SHAPE = (2, 2, 2)  # (pod, data, model)
 
 def launch(group: str, tmp: str, timeout: float = 240.0) -> tuple:
     """Runs ``group`` on ``WORLD`` ranks; returns (arrays, results, seconds)."""
-    t0 = time.perf_counter()
+    return wait(start(group, tmp), timeout)
+
+
+def start(group: str, tmp: str):
+    """Starts ``group`` on ``WORLD`` ranks and returns at once; ``wait``
+    takes the handle.  The caller may work meanwhile."""
     ctx = mp.start_processes(_rank, args=(group, tmp), nprocs=WORLD, join=False,
                              start_method="spawn")
+    return ctx, group, tmp, time.perf_counter()
+
+
+def wait(handle, timeout: float = 240.0) -> tuple:
+    """The ranks' (arrays, results, seconds since ``start``)."""
+    ctx, group, tmp, t0 = handle
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
         if time.monotonic() > deadline:
@@ -65,6 +76,7 @@ def _rank(rank: int, group: str, tmp: str) -> None:
 
 
 def _mesh(shape=MESH_SHAPE, names=("pod", "data", "model")):
+    shape = tuple(shape)
     from torch.distributed.device_mesh import DeviceMesh
 
     return DeviceMesh("cpu", torch.arange(int(np.prod(shape))).reshape(shape),
@@ -198,54 +210,90 @@ def _forward_cases(arrays, spec, mesh):
     return outs
 
 
+def _step_on_mesh(cfg, ocfg, state, batch, mesh, policy, *, microbatches=1, record=False):
+    """One ``make_train_step`` with grad_specs on ``mesh`` from the plain
+    ``state`` and ``batch``: (state, metrics, info).  ``info`` holds, for
+    the tolerances, the names of the parameters whose bf16 gradient reached
+    its pin as a partial sum and the norm of the sum of |partial| over the
+    ranks; with ``record``, also the bf16 gradients that reached the update
+    (whole) and rank 0's collectives (``trace_analysis.count``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.coord.elastic import state_specs
+    from repro_torch.launch import trace_analysis
+    from repro_torch.models import sharding
+    from repro_torch.train import make_train_step, optimizer
+    from repro_torch.train.train_loop import place_state
+
+    sizes = sharding.axis_sizes(mesh)
+    rep = [Replicate()] * mesh.ndim
+    specs = state_specs(cfg, state, sizes, policy=policy)
+    state = place_state(state, mesh, specs)
+    batch = {k: sharding.place(v, mesh, sharding.batch_spec(cfg, tuple(v.shape), sizes,
+                                                            policy=policy))
+             for k, v in batch.items()}
+    model = state.params
+    partials, grads = [], {}
+
+    def read_partial(p, name):  # each microbatch's gradient as it reaches the pin
+        g = p.grad
+        if isinstance(g, DTensor) and any(pl.is_partial() for pl in g.placements):
+            partials.append((name, g.to_local().abs(), g.placements))
+
+    hooks = [p.register_post_accumulate_grad_hook(lambda p, n=name: read_partial(p, n))
+             for name, p in model.named_parameters()]
+    update = optimizer.update
+
+    def kept(ocfg_, params, g, st):
+        grads.update(g)
+        return update(ocfg_, params, g, st)
+
+    step = make_train_step(cfg, ocfg, microbatches=microbatches, grad_specs=specs.params)
+    out = {}
+    optimizer.update = kept if record else update
+    try:
+        with sharding.set_mesh(mesh):
+            if record:  # the step's own collectives: the readings above wait
+                counted = trace_analysis.count(lambda: out.update(r=step(state, batch)))
+            else:
+                out["r"] = step(state, batch)
+    finally:
+        optimizer.update = update
+        for h in hooks:
+            h.remove()
+    abs_sum = {}
+    for name, a, placements in partials:
+        a = DTensor.from_local(a, mesh, placements, run_check=False)
+        abs_sum[name] = abs_sum.get(name, 0) + a.redistribute(mesh, rep).to_local()
+    state, metrics = out["r"]
+    norm = float(torch.sqrt(sum(torch.sum(a.double() ** 2) for a in abs_sum.values())))
+    info = dict(partial=sorted(abs_sum), abs_partial_norm=norm)
+    if record:
+        info.update(grads={k: sharding.whole(g).float().numpy() for k, g in grads.items()},
+                    collectives=counted.collectives)
+    return state, metrics, info
+
+
 def _train_cases(arrays, spec, mesh):
     """(d) One train step with grad_specs under the fsdp policy, from the
     JAX state of the test: loss, grad norm, the updated masters, and for the
     tolerance the bf16-reduced gradients' sum of |partial| over the ranks
     (the norm of it) and the names of the parameters they belong to."""
-    from torch.distributed.tensor import DTensor, Replicate
-    from repro_torch.coord.elastic import state_specs
-    from repro_torch.models import sharding
-    from repro_torch.train import OptConfig, make_train_step
-    from repro_torch.train.train_loop import place_state
+    from repro_torch.train import OptConfig
     from repro_torch.weights import train_state_from_jax
 
     t = spec["train"]
     cfg = _cfg(t["arch"], sharding_policy="fsdp")
     ocfg = OptConfig(**t["opt"])
-    sizes = sharding.axis_sizes(mesh)
-    rep = [Replicate()] * mesh.ndim
     outs, rows = {}, {}
     for mb in t["microbatches"]:
         state = train_state_from_jax(_nest_state(arrays, "train/state/"), cfg, device="cpu")
-        specs = state_specs(cfg, state, sizes, policy="fsdp")
-        state = place_state(state, mesh, specs)
-        bspec = sharding.batch_spec(cfg, tuple(arrays["train/tokens"].shape), sizes,
-                                    policy="fsdp")
-        batch = {k: sharding.place(torch.from_numpy(arrays[f"train/{k}"]), mesh, bspec)
-                 for k in t["batch_keys"]}
-        model = state.params
-        abs_sum, partial = {}, set()
-
-        def read_partial(p, name):  # each microbatch's gradient as it reaches the pin
-            g = p.grad
-            if isinstance(g, DTensor) and any(pl.is_partial() for pl in g.placements):
-                partial.add(name)
-                a = DTensor.from_local(g.to_local().abs(), mesh, g.placements, run_check=False)
-                abs_sum[name] = abs_sum.get(name, 0) + a.redistribute(mesh, rep).to_local()
-
-        hooks = [p.register_post_accumulate_grad_hook(lambda p, n=name: read_partial(p, n))
-                 for name, p in model.named_parameters()]
-        with sharding.set_mesh(mesh):
-            state, metrics = make_train_step(cfg, ocfg, microbatches=mb,
-                                             grad_specs=specs.params)(state, batch)
-        for h in hooks:
-            h.remove()
-        for name, p in model.named_parameters():
+        batch = {k: torch.from_numpy(arrays[f"train/{k}"]) for k in t["batch_keys"]}
+        state, metrics, info = _step_on_mesh(cfg, ocfg, state, batch, mesh, "fsdp",
+                                             microbatches=mb)
+        for name, p in state.params.named_parameters():
             outs[f"train/{mb}/{name}"] = p.detach().full_tensor().numpy()
-        norm = float(torch.sqrt(sum(torch.sum(a.double() ** 2) for a in abs_sum.values())))
         rows[str(mb)] = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
-                             partial=sorted(partial), abs_partial_norm=norm)
+                             **info)
     return outs, rows
 
 
@@ -315,4 +363,120 @@ def _group_all(rank, arrays, spec, tmp):
     return out_arrays, out
 
 
-GROUPS = {"mesh": _group_mesh, "elastic": _group_elastic, "all": _group_all}
+# ---------------------------------------------------------------------------
+# Group "families": cases (h) to (k), on the (2, 2, 2) mesh and on (1, 1, 8)
+# ---------------------------------------------------------------------------
+def _pin_cases(arrays, spec):
+    """(h) ``moe_apply`` of a MoE smoke config under tp, x laid out as the
+    residual: each pin's output placements beside ``to_placements`` of the
+    spec the reference asks for there, and y and the aux metrics whole."""
+    from repro_torch.models import moe, sharding
+
+    outs, rows = {}, {}
+    for case in spec["pins"]:
+        name, mesh = case["name"], _mesh(case["mesh"])
+        cfg = _cfg(case["arch"], sharding_policy="tp")
+        sizes = sharding.axis_sizes(mesh)
+        prefix = f"pins/{name}/p/"
+        flat = {k[len(prefix):]: torch.from_numpy(v) for k, v in arrays.items()
+                if k.startswith(prefix)}
+        specs = sharding.param_specs(cfg, flat, sizes, policy="tp")
+        p = _nest({k: sharding.place(v, mesh, specs[k]) for k, v in flat.items()})
+        x = torch.from_numpy(arrays[f"pins/{name}/x"])
+        x = sharding.place(x, mesh, sharding._pad((sharding._dp(sizes), "model", None), 3))
+        seen, constrain = [], sharding._constrain
+        sharding._constrain = lambda t, sp: seen.append(constrain(t, sp)) or seen[-1]
+        try:
+            with sharding.set_mesh(mesh), torch.no_grad():
+                y, aux = moe.moe_apply(cfg, p, x)
+        finally:
+            sharding._constrain = constrain
+        want = [sharding.to_placements(tuple(tuple(e) if isinstance(e, list) else e for e in w),
+                                       mesh, t.shape) for w, t in zip(case["want"], seen)]
+        rows[name] = dict(got=[_placements(t) for t in seen],
+                          want=[[repr(pl) for pl in w] for w in want],
+                          aux={k: float(v.full_tensor()) for k, v in aux.items()})
+        outs[f"pins/{name}/y"] = y.full_tensor().numpy()
+    return outs, rows
+
+
+def _family_steps(arrays, spec):
+    """(i)-(k) Each family's smoke train step on its mesh under its
+    training policy, from the JAX state of the test: loss, grad norm, the
+    masters, the int8 moments whole, and where the case says ``record``
+    the bf16 gradients that reached the update and rank 0's collectives."""
+    from repro_torch.train import OptConfig
+    from repro_torch.weights import train_state_from_jax
+
+    outs, rows = {}, {}
+    for case in spec["steps"]:
+        name = case["name"]
+        cfg = _cfg(case["arch"], sharding_policy=case["policy"])
+        ocfg = OptConfig(**case["opt"])
+        state = train_state_from_jax(_nest_state(arrays, f"steps/{case['state']}/state/"), cfg,
+                                     device="cpu")
+        batch = {k: torch.from_numpy(arrays[f"steps/{case['state']}/batch/{k}"])
+                 for k in case["batch_keys"]}
+        state, metrics, info = _step_on_mesh(cfg, ocfg, state, batch, _mesh(case["mesh"]),
+                                             case["policy"], record=case["record"])
+        for pname, p in state.params.named_parameters():
+            outs[f"steps/{name}/params/{pname}"] = p.detach().full_tensor().numpy()
+        for pname, g in info.pop("grads", {}).items():
+            outs[f"steps/{name}/grads/{pname}"] = g
+        if ocfg.int8_state:
+            from repro_torch.models.sharding import whole
+
+            for which in ("m", "v"):
+                for pname, qs in getattr(state.opt, which).items():
+                    for key in ("q", "s"):
+                        outs[f"steps/{name}/{which}/{key}/{pname}"] = whole(qs[key]).numpy()
+        rows[name] = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                          **info)
+    return outs, rows
+
+
+def _int8_update_case(arrays, spec):
+    """(j) ``optimizer.update`` with int8 moments on DTensors laid out by
+    hand: a last dim split at whole blocks, one split inside a block
+    (gathered first), a split lead dim, a replicated vector.  The masters
+    and the q/s whole."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import sharding
+    from repro_torch.train import OptConfig
+    from repro_torch.train.optimizer import AdamState, update
+
+    c = spec["int8"]
+    mesh = _mesh()
+
+    def placed(key, sp):
+        sp = tuple(tuple(e) if isinstance(e, list) else e for e in sp)
+        t = torch.from_numpy(arrays[key])
+        return distribute_tensor(t, mesh, sharding.to_placements(sp, mesh, t.shape),
+                                 src_data_rank=None)
+
+    params = {n: placed(f"int8/p/{n}", sp) for n, sp in c["params"].items()}
+    grads = {n: placed(f"int8/g/{n}", sp) for n, sp in c["params"].items()}
+    moments = {w: {n: {k: placed(f"int8/{w}/{k}/{n}", sp) for k in ("q", "s")}
+                   for n, sp in c["q"].items()} for w in ("m", "v")}
+    st = AdamState(m=moments["m"], v=moments["v"],
+                   step=torch.tensor(c["step"], dtype=torch.int32))
+    params, st, metrics = update(OptConfig(**c["opt"]), params, grads, st)
+    outs = {f"int8/out/p/{n}": p.full_tensor().numpy() for n, p in params.items()}
+    for w in ("m", "v"):
+        for n, qs in getattr(st, w).items():
+            for k in ("q", "s"):
+                outs[f"int8/out/{w}/{k}/{n}"] = qs[k].full_tensor().numpy()
+                outs[f"int8/out/{w}/{k}/{n}/placements"] = np.array(_placements(qs[k]))
+    return outs, dict(grad_norm=float(metrics["grad_norm"]))
+
+
+def _group_families(rank, arrays, spec, tmp):
+    pin_arrays, out = _pin_cases(arrays, spec)
+    step_arrays, steps = _family_steps(arrays, spec)
+    int8_arrays, int8 = _int8_update_case(arrays, spec)
+    return {**pin_arrays, **step_arrays, **int8_arrays}, {"pins": out, "steps": steps,
+                                                           "int8": int8}
+
+
+GROUPS = {"mesh": _group_mesh, "elastic": _group_elastic, "all": _group_all,
+          "families": _group_families}

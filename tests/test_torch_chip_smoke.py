@@ -491,3 +491,39 @@ def test_mesh_phase_on_cpu():
     assert out["loss_max_rel_diff"] == 0.0 and out["elastic_loss_max_rel_diff"] == 0.0
     assert out["elastic"]["shapes"] == [(1, 1)] and out["plain_elastic"]["shapes"] == [None]
     assert [r["pods"] for r in out["elastic"]["remesh"]] == [["pod0"], ["pod0", "pod1"]]
+
+
+def test_mesh_families_phase_on_cpu():
+    """Phase 10 on the CPU: part (a), each family's smoke config and scout
+    with int8 moments on a one-rank gloo group's (1, 1, 1) mesh against no
+    mesh, bit-equal; part (b) run at smoke size through the same code."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        full = [(get_smoke_config("mamba2_2p7b").replace(dtype="float32"), {})]
+        out = smoke.mesh_families_phase("CPU", device="cpu", full=full, seq_len=32,
+                                        full_opt=dict(lr=1e-3, warmup_steps=1))
+    finally:
+        torch.set_num_threads(threads)
+    assert (out["backend"], out["mesh"], out["launched"]) == ("gloo", [1, 1, 1], {})
+    ids = {a: get_smoke_config(a).arch_id for a, _, _ in smoke.MESH_FAMILIES["smoke"]}
+    assert [(r["arch"], r["policy"], r["int8_state"]) for r in out["smoke"]] == [
+        (ids["grok_1_314b"], "tp", False), (ids["llama4_scout_17b_a16e"], "tp", False),
+        (ids["mamba2_2p7b"], "tp", False), (ids["zamba2_1p2b"], "tp", False),
+        (ids["seamless_m4t_large_v2"], "fsdp", False), (ids["llama4_scout_17b_a16e"], "tp", True)]
+    for row in out["smoke"]:
+        assert row["loss_max_rel_diff"] == 0.0 and row["masters_bit_equal"], row
+    (row,) = out["full"]
+    assert row["loss_max_rel_diff"] == 0.0 and len(row["losses_after"]) == 10
+
+
+def test_mesh_families_spec_is_published_widths_cut_in_depth_only():
+    """Phase 10 (b)'s models: published widths, depth cut, and scout's
+    optimizer the dry-run's (int8 moments above 60 B params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    for arch, cut, over in smoke.MESH_FAMILIES["full"]:
+        assert set(cut) == {"n_layers"}
+        assert over.get("int8_state", False) == dryrun.opt_config(get_config(arch)).int8_state
+        assert get_config(arch).replace(**cut).d_model == get_config(arch).d_model

@@ -12,7 +12,12 @@
   encoder-decoder families, and for one smoke train step, each by the
   relation stated beside it.
 * ``collective_traffic`` and ``roofline_terms`` equal the reference's on the
-  same inputs, the hardware constants set equal on both sides.
+  same inputs, the hardware constants set equal on both sides; by 8-GPU
+  node, a group inside one node is charged to NVLink and one across two to
+  InfiniBand.
+* A train cell on 256 devices: the step run on the fake world gives one
+  device's FLOPs and bytes and a numeric collective term (a serving cell's
+  stays ``null``, "not measured", naming ROADMAP item 11e).
 * ``read_profile`` on a CPU profile of a smoke decode step and on a
   synthetic trace with known kernels, launches and overlaps.
 * ``make_production_mesh`` builds only over a world of its size.
@@ -191,7 +196,7 @@ def test_run_cell_writes_artifacts(tmp_path):
         assert (tmp_path / f"mamba2_2p7b__long_500k__{art['mesh']}.json").exists()
     assert one["n_devices"] == 1 and one["collective"]["n"] == 0
     assert many["n_devices"] == 256 and many["collective"] is None
-    assert "not measured" in many["collective_note"]
+    assert "not measured" in many["collective_note"] and "11e" in many["collective_note"]
     assert many["bytes_per_device"]["total"] < one["bytes_per_device"]["total"]
     assert one["fits_hbm80g"] == (one["bytes_per_device"]["total"] < mesh.HBM_BYTES)
     assert "N=not measured" in roofline.summarize_artifact(many)
@@ -365,6 +370,52 @@ def test_roofline_terms_match(monkeypatch):
            "roofline": roofline.roofline_terms(**kw), "useful_flops_ratio": 0.5,
            "collective": traffic}
     assert roofline.summarize_artifact(art) == jax_roofline.summarize_artifact(art)
+
+
+# Hand-made groups on 16 devices, two 8-GPU nodes (ranks 0-7 and 8-15).
+NODE_GROUPS = [
+    ("all-gather", 800, [[0, 1, 2, 3, 4, 5, 6, 7]], 800 * 7 / 8, 0.0),  # inside node 0
+    ("reduce-scatter", 100, [[8, 9, 10, 11]], 0.0 + 100 * 3, 0.0),  # inside node 1
+    ("all-reduce", 400, [[0, 8]], 0.0, 2 * 400 * 1 / 2),  # one GPU of each node
+    ("all-to-all", 1600, [list(range(16))], 0.0, 1600 * 15 / 16),  # both nodes
+    ("all-gather", 800, [[6, 7, 8, 9]], 0.0, 800 * 3 / 4),  # across the nodes' edge
+]
+
+
+@pytest.mark.parametrize("op,nbytes,groups,ici,dcn", NODE_GROUPS,
+                         ids=[f"{c[0]}-{c[2][0][0]}-{len(c[2][0])}" for c in NODE_GROUPS])
+def test_collective_traffic_by_node(op, nbytes, groups, ici, dcn):
+    """With ``pod_size=NODE_SIZE`` a group inside one 8-GPU node is charged
+    to NVLink (``ici``) and one that spans two nodes to InfiniBand (``dcn``),
+    by the ring model's bytes; the reference's function agrees."""
+    c = [dict(op=op, result_bytes=nbytes, group_size=len(groups[0]), count=1,
+              explicit_groups=groups)]
+    got = roofline.collective_traffic(c, n_devices=16, pod_size=mesh.NODE_SIZE)
+    assert (got["ici"], got["dcn"], got["n"]) == (ici, dcn, 1)
+    assert got == jax_roofline.collective_traffic(c, n_devices=16, pod_size=mesh.NODE_SIZE)
+    assert mesh.NODE_SIZE == 8
+
+
+def test_train_cell_on_a_mesh_has_a_collective_term(tmp_path):
+    """mamba2's train_4k cell on 256 devices: the step run on the fake
+    world gives one device's FLOPs and bytes and a numeric collective term
+    charged by node; the 16-way 'model' axis spans two nodes, so every
+    group of this mesh is charged to InfiniBand."""
+    art = dryrun.run_cell("mamba2_2p7b", "train_4k", meshes=["16x16"],
+                          out_dir=str(tmp_path))["16x16"]
+    coll, roof = art["collective"], art["roofline"]
+    assert art["count_scope"] == "per device" and art["n_devices"] == 256
+    assert coll["n"] > 0 and coll["n"] == len(art["collectives"]) and roof["collective_s"] > 0
+    assert coll["dcn"] > 0 and coll["ici"] == 0.0
+    assert set(coll["by_op"]) >= {"all-gather", "reduce-scatter", "all-reduce"}
+    assert all(len(c["explicit_groups"]) == 1 and c["group_size"] > 1 and c["count"] >= 1
+               for c in art["collectives"])
+    assert 0 < art["useful_flops_ratio"] <= 1.0
+    assert art["useful_flops_ratio"] == art["model_flops"] / (art["step_flops"] * 256)
+    assert roof["compute_s"] == art["step_flops"] / mesh.PEAK_BF16_FLOPS
+    assert roof["dominant"] in ("compute_s", "memory_s", "collective_s")
+    assert "N=not measured" not in roofline.summarize_artifact(art)
+    assert (tmp_path / "mamba2_2p7b__train_4k__16x16.json").exists()
 
 
 def test_h100_constants():
