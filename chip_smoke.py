@@ -18,10 +18,11 @@ Phases, each of which fails the run on any fault:
    call where there is one (decode cold, each call on the next of enough
    copies of the cache to exceed twice the L2, and warm); holds ``ops.ssd`` (the SSD kernel plus its
    recurrence glue) against the model's plain ``ssd_chunked``.  The
-   ``{"kernels": [...]}`` line, printed after phase 3, has one row per
+   ``{"kernels": [...]}`` line, printed after phase 11, has one row per
    kernel: the check, times, bound and launches at the first (path, shape)
    that ran it, and the same for each other (path, shape) under
-   ``other_paths``.
+   ``other_paths`` (for ``flash_decode`` also phase 11 (c)'s sequence
+   shards).
 3. Slices: serves stablelm-12b, mamba2-2.7b, zamba2-1.2b,
    seamless-m4t-large-v2 (encoder-decoder), grok-1 and llama4-scout (MoE,
    at a stated cut of their depth) at their published widths (random
@@ -106,6 +107,23 @@ Phases, each of which fails the run on any fault:
    (each step a descent, losses within 1e-6 relative), ms/step of both,
    peak memory and the busy share of a profiled mesh step; no kernel
    launch in the phase.
+11. Serving on a mesh (``Engine.generate`` under ``set_mesh``, the weights
+   placed by ``param_specs(..., "tp")``, the decode state laid out by
+   ``decode_state_specs``) on a third one-rank NCCL group and (1, 1, 1)
+   mesh: (a) stablelm-12b, mamba2-2.7b and seamless-m4t-large-v2 at their
+   published widths and full depth, 32 tokens on the mesh against the same
+   weights with no mesh: the greedy tokens equal, each step's logits within
+   1e-6 of their largest |value|, the launches ``SLICES``', the state's
+   placements the specs'; prefill ms and decode ms/step both ways; (b) the
+   f32 smoke configs of grok, scout, zamba2 and gemma2 (windowed and
+   softcapped) gated as (a); (c) ``flash_decode`` on the 16 sequence shards
+   of decode_32k's local cache at 16 x 16 (and a windowed, softcapped hd-256
+   case with empty shards) with ``key_offset`` and ``return_lse``: each
+   shard's output and log-sum-exp against the plain version's, the merge
+   against the whole-cache kernel and the plain version (within 4 bf16
+   steps of the largest |value|), two planted faults refused by that gate;
+   timed cold against one whole-cache call and the masked
+   ``scaled_dot_product_attention``.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script exits with
 a non-zero code, and prints no result, when no CUDA device is present.
@@ -812,17 +830,17 @@ def expected_launches(launches, decode_steps):
             "ssd_intra_chunk": ssd}
 
 
-def make_inputs(cfg, gen, batch, prompt):
+def make_inputs(cfg, gen, batch, prompt, device="cuda"):
     """Prompt tokens from ``gen``; for the encoder-decoder also the stub
     frame embeddings (batch, enc_len, d_model) in the config's type."""
     import torch
     from repro_torch import torch_dtype
 
     inputs = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
-                                      device="cuda")}
+                                      device=device)}
     if cfg.family == "encdec":
         inputs["enc_emb"] = torch.randn((batch, cfg.enc_len, cfg.d_model), generator=gen,
-                                        device="cuda").to(torch_dtype(cfg.dtype))
+                                        device=device).to(torch_dtype(cfg.dtype))
     return inputs
 
 
@@ -2520,6 +2538,428 @@ def mesh_families_phase(card, spec=MESH_FAMILIES, device="cuda", full=None, full
         raise AssertionError("mesh families: " + "; ".join(faults))
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving on a device mesh (``mesh serve:`` lines): Engine.generate
+# under ``set_mesh``, the weights placed by ``param_specs(..., "tp")``, the
+# decode state laid out by ``decode_state_specs``, on a one-rank NCCL group
+# and a (1, 1, 1) (pod, data, model) mesh, as phases 9 and 10 (the
+# multi-rank behaviour is held on 8 gloo ranks on the CPU,
+# tests/test_torch_serve_mesh.py); and the decode kernel on a sequence
+# shard of a cache, as a rank of a mesh whose caches split their sequence
+# runs it.
+# (a) stablelm-12b (40 layers), mamba2-2.7b (64) and seamless-m4t-large-v2
+# at their published widths and full depth (``SLICES``' widths, prompts and
+# batch; 32 tokens), each on the mesh against the same weights with no mesh
+# (shared, not copied).  Gates: the greedy tokens equal; each step's logits
+# (the prefill's and 32 decode steps') within MESH_SERVE_LOGIT_RTOL of
+# their largest |value|; the kernel launches on the mesh those of
+# ``SLICES``; the decode state's placements after the prefill and after the
+# last step ``to_placements`` of ``decode_state_specs``.
+# (b) The f32 smoke configs of grok and scout (the MoE's dropless decode on
+# the mesh), zamba2 and gemma2 (windowed, softcapped; its caches of 24
+# entries longer than its window of 8), 8 tokens, gated as (a), the
+# launches those of the same run with no mesh.
+# (c) ``flash_decode`` on each of 16 sequence shards of 2048 entries of a
+# 32,768-entry cache (decode_32k's local shape at 16 x 16: B 8, H 32, K 8,
+# hd 160, bf16, ragged lengths up to 32,768) with ``key_offset`` and
+# ``return_lse``: each shard's output and log-sum-exp against the plain
+# version's on that shard, the merge (``ops.merge_decode_partials``, the
+# formula ``layers.decode_merge`` runs on a mesh) against the whole-cache
+# kernel and the plain version, and two planted faults (log-sum-exps
+# zeroed, the key offset ignored) that the merge's gate must refuse (the
+# gates below); and a windowed, softcapped case at hd 256 (H 8, K 4, window 4096, softcap
+# 50, gemma2's), whose windows cross shard edges and leave most shards
+# empty.  Timed cold as phase 2 times decode: the 16 shard calls and the
+# merge against one whole-cache call.
+# A one-rank mesh runs the same local ops on the same shapes in the same
+# order as no mesh, so its logits are expected bit-equal (the readings of
+# phases 9 and 10); held at 1e-6 of the largest |logit|, as phase 9 holds
+# its losses, which any op that ran otherwise (another kernel, a cast, a
+# merge of partials) would exceed by orders of magnitude (one bf16 step is
+# 4e-3 relative).
+MESH_SERVE = dict(
+    full=["stablelm_12b", "mamba2_2p7b", "seamless_m4t_large_v2"], batch=4, gen_steps=32,
+    smoke=[("grok_1_314b", 16, 24), ("llama4_scout_17b_a16e", 16, 24),
+           ("zamba2_1p2b", 32, 40), ("gemma2_2b", 12, 24)],  # (arch, prompt, max_len)
+    smoke_steps=8,
+    shards=[dict(B=8, S=32768, shards=16, H=32, K=8, hd=160, max_len=32768),
+            dict(B=8, S=32768, shards=16, H=8, K=4, hd=256, window=4096, softcap=50.0,
+                 max_len=9000)])
+MESH_SERVE_LOGIT_RTOL = 1e-6
+# (c)'s gates.  A shard's log-sum-exp against the plain version's at 1e-5
+# relative: both sum the same f32 exponentials of the same f32 scores, in
+# another order and with __expf's few ulps; a wrong log-sum-exp that the
+# merge could still hide (a fault in the max, a missing key) moves it by
+# far more.  A shard's output, and the merged output, within SHARD_STEPS
+# bf16 rounding steps (BF16_STEP, 2^-7) of the largest |want|: the merge adds at most half a step of its largest partial (over
+# 1/16 of the keys, about sqrt(16) = 4x the merged values' size) and its
+# own rounding, half a step, to the plain version's half step; 2 + 0.5 +
+# 0.5 = 3 steps, 4 with room.  Not TOL, which at 0.03 (1 + |want|) is as
+# large as the merged values.
+SHARD_LSE_RTOL = 1e-5
+SHARD_STEPS = 4
+
+
+def _watched_generate(engine, inputs, steps, mesh):
+    """``engine.generate`` (greedy) under ``set_mesh(mesh)``, each step's
+    logits kept whole and the decode state's leaves after the prefill and
+    after the last step: (tokens, logits (steps + 1, B, V), [states],
+    launches, wall s)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharding import set_mesh, whole
+
+    logits, states = [], []
+    prefill, decode = engine._prefill, engine._decode
+
+    def watched(fn):
+        def run(*args):
+            lg, state = fn(*args)
+            logits.append(whole(lg)[:, -1].float())
+            states.append(state)
+            return lg, state
+        return run
+
+    engine._prefill, engine._decode = watched(prefill), watched(decode)
+    try:
+        ops.reset_launches()
+        sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        with set_mesh(mesh):
+            out = engine.generate(inputs, steps)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        engine._prefill, engine._decode = prefill, decode
+    return (out.tokens, torch.stack(logits), [states[0], states[-1]], dict(ops.LAUNCHES), wall)
+
+
+def _serve_rates(engine, inputs, steps, wall, mesh):
+    """Prefill ms (median of 3, the step alone) and decode ms a step (the
+    ``steps``-token run's wall less a 1-token run's, over steps - 1)."""
+    import statistics
+    import torch
+    from repro_torch.models.sharding import set_mesh
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    prefill_ms, one_ms = [], []
+    with set_mesh(mesh):
+        batch = {k: engine._laid_out(v) for k, v in inputs.items()}
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            engine._prefill(batch)
+            sync()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        sync()
+        t0 = time.perf_counter()
+        engine.generate(inputs, 1)
+        sync()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(prefill_ms), (wall * 1e3 - one_ms[0]) / (steps - 1)
+
+
+def _serve_on_mesh(label, cfg, model, inputs, max_len, steps, mesh, device, expected=None,
+                   rates=False):
+    """``model`` served with no mesh and, sharing its weights, on ``mesh``:
+    the readings and gates of (a) and (b); returns (row, faults)."""
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models.sharding import (_zip_map, axis_sizes, decode_state_specs,
+                                             param_specs, place_module, to_placements)
+    from repro_torch.serve import Engine
+
+    meshed = get_model(cfg)
+    meshed.load_state_dict(model.state_dict(), assign=True)
+    place_module(meshed, mesh, param_specs(cfg, dict(meshed.named_parameters()),
+                                           axis_sizes(mesh), "tp"))
+    runs = {}
+    for side, m, on in (("plain", model, None), ("mesh", meshed, mesh)):
+        eng = Engine(m, max_len=max_len, device=device)
+        if rates:
+            _watched_generate(eng, inputs, 2, on)  # warm-up: library handles, allocator
+        tokens, logits, states, launches, wall = _watched_generate(eng, inputs, steps, on)
+        runs[side] = dict(tokens=tokens, logits=logits, states=states, launches=launches,
+                          wall=wall)
+        if rates:
+            runs[side]["prefill_ms"], runs[side]["decode_ms"] = _serve_rates(
+                eng, inputs, steps, wall, on)
+        del eng
+    plain, meshy = runs["plain"], runs["mesh"]
+    diff = (meshy["logits"] - plain["logits"]).abs().max().item()
+    top = plain["logits"].abs().max().item()
+    bad_placements = []
+
+    def check(which):
+        def leaf_check(leaf, spec):
+            want = to_placements(spec, mesh, leaf.shape)
+            if list(leaf.placements) != list(want):
+                bad_placements.append((which, tuple(leaf.shape), spec, leaf.placements))
+            return list(spec)
+        return leaf_check
+
+    for which, state in zip(("after prefill", "after the last step"), meshy["states"]):
+        specs = _zip_map(check(which), state, decode_state_specs(cfg, state, axis_sizes(mesh)))
+    row = dict(label=label, arch=cfg.arch_id, n_layers=cfg.n_layers, dtype=cfg.dtype,
+               steps=steps, tokens_equal=bool((meshy["tokens"] == plain["tokens"]).all()),
+               logits_max_abs_diff=diff, logits_max_abs=top,
+               logits_bit_equal=bool(torch.equal(meshy["logits"], plain["logits"])),
+               launches=meshy["launches"], plain_launches=plain["launches"],
+               state_specs=specs, placements_ok=not bad_placements)
+    if rates:
+        row.update(prefill_ms=meshy["prefill_ms"], plain_prefill_ms=plain["prefill_ms"],
+                   decode_ms_per_step=meshy["decode_ms"],
+                   plain_decode_ms_per_step=plain["decode_ms"])
+    faults = []
+    if not row["tokens_equal"]:
+        faults.append(f"{label}: greedy tokens differ from no mesh's")
+    if not (torch.isfinite(meshy["logits"]).all() and diff <= MESH_SERVE_LOGIT_RTOL * top):
+        faults.append(f"{label}: logits {diff:.3e} from no mesh's (gate "
+                      f"{MESH_SERVE_LOGIT_RTOL} x {top:.3e})")
+    want_launches = expected if expected is not None else plain["launches"]
+    if meshy["launches"] != want_launches:
+        faults.append(f"{label}: launches on the mesh {meshy['launches']}, expected "
+                      f"{want_launches}")
+    if bad_placements:
+        faults.append(f"{label}: decode state placements {bad_placements}")
+    del meshed
+    return row, faults
+
+
+def _within_steps(out, want, dtype, what: str) -> float:
+    """Max abs error; raises unless it is within SHARD_STEPS bf16 rounding
+    steps of the largest |want|, or if ``out`` is not finite.  (c) runs in
+    bf16 on the card; its f32 run on the CPU is held at the same gate."""
+    import torch
+
+    diff = (out.float() - want.float()).abs().max().item()
+    gate = SHARD_STEPS * BF16_STEP * want.float().abs().max().item()
+    if not (torch.isfinite(out.float()).all() and diff <= gate):
+        raise AssertionError(f"{what}: max abs err {diff:.3e} over the gate {gate:.3e} "
+                             f"({SHARD_STEPS} steps of max |want|)")
+    return diff
+
+
+def shard_case(gen, B, S, shards, H, K, hd, dtype, lengths, *, window=None, softcap=None,
+               device="cuda", measure=False):
+    """(c) The decode kernel on each of ``shards`` sequence shards of a
+    cache with ``key_offset`` and ``return_lse``: each shard's output and
+    log-sum-exp against the plain version's on the same shard, and the
+    merge against the whole-cache kernel and the plain version, with two
+    planted faults that the merge's gate must refuse; with ``measure`` the
+    times (cold) of the shard calls and the merge, of the whole-cache
+    kernel, of the plain version over the shards and the merge, of the
+    masked ``scaled_dot_product_attention`` over the whole cache, and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    q = torch.randn(B, 1, H, hd, generator=gen, device=device).to(dtype)
+    kc = torch.randn(B, S, K, hd, generator=gen, device=device).to(dtype)
+    vc = torch.randn(B, S, K, hd, generator=gen, device=device).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    kw = dict(scale=hd ** -0.5, window=window, softcap=softcap)
+    cut = S // shards
+
+    def kernel_parts(kc=kc, vc=vc, offsets=True):
+        return [ops.decode_attention(q, kc[:, i * cut:(i + 1) * cut], vc[:, i * cut:(i + 1) * cut],
+                                     lens, key_offset=i * cut if offsets else 0,
+                                     return_lse=True, **kw)
+                for i in range(shards)]
+
+    def plain_parts(kc=kc, vc=vc):
+        return [ref.decode_attention_ref(
+            q[:, 0], kc[:, i * cut:(i + 1) * cut].transpose(1, 2),
+            vc[:, i * cut:(i + 1) * cut].transpose(1, 2), lens, key_offset=i * cut,
+            return_lse=True, **kw) for i in range(shards)]
+
+    def merged(parts):
+        return ops.merge_decode_partials([o for o, _ in parts], [lse for _, lse in parts])
+
+    def sharded(kc=kc, vc=vc):
+        return merged(kernel_parts(kc, vc))
+
+    def plain_sharded(kc=kc, vc=vc):
+        return merged(plain_parts(kc, vc))
+
+    def whole(kc=kc, vc=vc):
+        return ops.decode_attention(q, kc, vc, lens, **kw)
+
+    launches = ops.LAUNCHES["flash_decode"]
+    parts = kernel_parts()
+    launched = ops.LAUNCHES["flash_decode"] - launches
+    # Each shard against the plain version on the same shard: the
+    # log-sum-exp at SHARD_LSE_RTOL, its -inf (no key in the shard) pattern
+    # exactly, such a row's output exactly 0, the output within SHARD_STEPS.
+    empty, err_shard, err_lse = 0, 0.0, 0.0
+    for i, ((o, lse), (po, plse)) in enumerate(zip(parts, plain_parts())):
+        none = torch.isneginf(plse)
+        if not torch.equal(torch.isneginf(lse), none):
+            raise AssertionError(f"shard {i}: rows with no key differ from the plain version's")
+        if not (o[:, 0][none] == 0).all():
+            raise AssertionError(f"shard {i}: a row with no key in the shard is not 0")
+        d = (lse[~none] - plse[~none]).abs()
+        if not (d <= SHARD_LSE_RTOL * plse[~none].abs()).all():
+            raise AssertionError(f"shard {i}: log-sum-exp {d.max().item():.3e} from the plain "
+                                 f"version's (rtol {SHARD_LSE_RTOL})")
+        err_lse = max(err_lse, d.max().item() if d.numel() else 0.0)
+        err_shard = max(err_shard, _within_steps(o[:, 0], po, dtype, f"shard {i} output"))
+        empty += int(none.all(dim=1).sum().item())
+    got = merged(parts)
+    plain = ref.decode_attention_ref(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lens,
+                                     **kw)[:, None]
+    err = _within_steps(got, plain, dtype, "merged shards vs the plain version")
+    err_kernel = _within_steps(got, whole(), dtype, "merged shards vs the whole-cache kernel")
+    # Planted faults, each of which the merge's gate must refuse: the
+    # log-sum-exps zeroed (every shard weighs alike) and the key offset
+    # ignored (every shard read as the cache's first).
+    controls = {}
+    for fault, faulty in (("lse zeroed", [(o, torch.zeros_like(lse)) for o, lse in parts]),
+                          ("key_offset ignored", kernel_parts(offsets=False))):
+        try:
+            _within_steps(merged(faulty), plain, dtype, fault)
+        except AssertionError as e:
+            controls[fault] = str(e)
+        else:
+            raise AssertionError(f"(c)'s merge gate passed a planted fault: {fault}")
+    row = dict(shape=f"B={B} S={S} in {shards} shards of {cut} H={H} K={K} hd={hd} "
+                     f"lengths={list(lengths)}", dtype=dtype_name(dtype), window=window,
+               softcap=softcap, max_abs_err=err, max_abs_err_vs_whole_kernel=err_kernel,
+               shard_max_abs_err=err_shard, lse_max_abs_err=err_lse,
+               tol=f"{SHARD_STEPS} steps of max |want|", lse_rtol=SHARD_LSE_RTOL,
+               launches_per_merge=launched, empty_shard_rows=empty, controls_refused=controls)
+    if not measure:
+        return row
+    # The bound: each valid key's K and V read once, q, the shards' outputs
+    # and log-sum-exps written once and read once by the merge, the output
+    # written; 4 hd flops a (query head, key).
+    valid = sum(min(n, window) if window else n for n in lengths)
+    part_bytes = shards * B * H * (hd * q.element_size() + 4)
+    nbytes = (q.numel() * q.element_size() + 2 * K * hd * valid * q.element_size()
+              + 2 * part_bytes + B * H * hd * q.element_size() + 4 * B)
+    b_ms, b_by = bound_ms(nbytes, 4 * hd * (H // K) * K * valid, dtype)
+    pos = torch.arange(S, device=device)[None, :]
+    mask = pos < lens[:, None]
+    if window:
+        mask &= pos >= lens[:, None] - window
+    mask = mask[:, None, None, :]
+
+    def library(kc=kc, vc=vc):  # the same function: attention over the whole cache
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+            scale=kw["scale"], enable_gqa=True)
+
+    n = cold_copies(2 * kc.numel() * kc.element_size())
+    copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n - 1)]
+
+    def turns(fn):
+        return [lambda c=c: fn(*c) for c in copies]
+
+    # No PyTorch attention call takes a logit softcap: no library time there.
+    row.update(ms=time_ms(turns(sharded), iters=10), whole_ms=time_ms(turns(whole), iters=10),
+               plain_ms=time_ms(turns(plain_sharded), iters=3, warmup=1), bound_ms=b_ms,
+               bound_by=b_by, cold_copies=n,
+               library_ms=time_ms(turns(library), iters=10) if softcap is None else None)
+    del copies
+    return row
+
+
+def mesh_serve_phase(card, spec=MESH_SERVE, device="cuda", full=None, shards=None):
+    """Gates (a), (b) and (c) of phase 11; raises unless each holds.
+    ``full`` (default: ``spec["full"]`` at ``SLICES``' widths, prompts and
+    launches) takes (cfg, prompt, expected launches or None) triples;
+    ``shards`` (default ``spec["shards"]``) the shard cases of (c).
+    Returns the readings."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    if full is None:
+        full = [(get_config(arch).replace(**SLICES[arch].get("cut", {})), SLICES[arch]["prompt"],
+                 expected_launches(SLICES[arch]["launches"], spec["gen_steps"]))
+                for arch in spec["full"]]
+    shards = spec["shards"] if shards is None else shards
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    backend = init_group(device)
+    faults, full_rows, smoke_rows = [], [], []
+    try:
+        mesh = DeviceMesh(device, torch.zeros((1, 1, 1), dtype=torch.int64),
+                          mesh_dim_names=("pod", "data", "model"))
+        for cfg, prompt, expected in full:
+            t0 = time.perf_counter()
+            cfg = cfg.replace(sharding_policy="tp")
+            gen = torch.Generator(device=device).manual_seed(0)
+            model = get_model(cfg).init(gen, device=device)
+            inputs = make_inputs(cfg, gen, spec["batch"], prompt, device)
+            max_len = prompt + spec["gen_steps"] + 1
+            row, bad = _serve_on_mesh(f"(a) {cfg.arch_id}", cfg, model, inputs, max_len,
+                                      spec["gen_steps"], mesh, device, expected, rates=True)
+            row.update(prompt=prompt, batch=spec["batch"], seconds=time.perf_counter() - t0)
+            full_rows.append(row)
+            faults += bad
+            log(f"mesh serve: (a) {cfg.arch_id} {cfg.n_layers} layers, B={spec['batch']} "
+                f"prompt={prompt}, {spec['gen_steps']} tokens on the (1, 1, 1) mesh vs no mesh: "
+                f"tokens equal {row['tokens_equal']}, logits max abs diff "
+                f"{row['logits_max_abs_diff']:.3e} (bit-equal {row['logits_bit_equal']}; gate "
+                f"{MESH_SERVE_LOGIT_RTOL} x {row['logits_max_abs']:.3e}), launches "
+                f"{json.dumps(row['launches'])}, state placements as the specs "
+                f"{row['placements_ok']}; prefill {row['prefill_ms']:.2f} ms vs "
+                f"{row['plain_prefill_ms']:.2f}, decode {row['decode_ms_per_step']:.2f} ms/step "
+                f"vs {row['plain_decode_ms_per_step']:.2f} with no mesh; {row['seconds']:.1f} s "
+                f"[{card}]")
+            del model, inputs
+            free()
+        for arch, prompt, max_len in spec["smoke"]:
+            cfg = get_smoke_config(arch).replace(dtype="float32", sharding_policy="tp")
+            gen = torch.Generator(device=device).manual_seed(0)
+            model = get_model(cfg).init(gen, device=device)
+            inputs = make_inputs(cfg, gen, spec["batch"], prompt, device)
+            row, bad = _serve_on_mesh(f"(b) {cfg.arch_id} smoke", cfg, model, inputs, max_len,
+                                      spec["smoke_steps"], mesh, device)
+            smoke_rows.append(row)
+            faults += bad
+            log(f"mesh serve: (b) {cfg.arch_id} f32 smoke, prompt {prompt}, cache {max_len}: "
+                f"tokens equal {row['tokens_equal']}, logits max abs diff "
+                f"{row['logits_max_abs_diff']:.3e} (bit-equal {row['logits_bit_equal']}), "
+                f"launches {json.dumps(row['launches'])} (no mesh "
+                f"{json.dumps(row['plain_launches'])}), placements {row['placements_ok']}")
+            del model
+            free()
+    finally:
+        dist.destroy_process_group()
+    shard_rows = []
+    gen = torch.Generator(device=device).manual_seed(0)
+    for case in shards:
+        case = dict(case)
+        B, S, max_len = case.pop("B"), case.pop("S"), case.pop("max_len")
+        lengths = torch.randint(1, max_len + 1, (B,), generator=gen, device=device).tolist()
+        lengths[0] = max_len  # the longest row; the others ragged
+        row = shard_case(gen, B, S, case.pop("shards"), case.pop("H"), case.pop("K"),
+                         case.pop("hd"), torch.bfloat16 if cuda else torch.float32, lengths,
+                         device=device, measure=cuda, **case)
+        shard_rows.append(row)
+        log("mesh serve: (c)", json.dumps(row))
+        free()
+    out = dict(card=card, backend=backend, mesh=[1, 1, 1], full=full_rows, smoke=smoke_rows,
+               shards=shard_rows, seconds=time.perf_counter() - t_phase)
+    log(f"mesh serve: phase 11 took {out['seconds']:.1f} s [{card}]")
+    if faults:
+        raise AssertionError("mesh serve: " + "; ".join(faults))
+    return out
+
+
 KERNELS = {
     "flash_prefill": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -2570,6 +3010,23 @@ def kernel_rows(checked, paths):
     return rows
 
 
+def shard_paths(kernels, serve):
+    """Adds phase 11 (c)'s sequence-shard calls to ``flash_decode``'s row
+    of the ``kernels`` line, one entry under ``other_paths`` per case: its
+    launches a merged call, its check, times (the shard calls and the
+    merge, cold), bound and the library's (the masked
+    ``scaled_dot_product_attention`` over the whole cache; none with a
+    softcap)."""
+    row = next(r for r in kernels if r["name"] == "flash_decode")
+    for c in serve["shards"]:
+        row["other_paths"].append(dict(
+            path="sequence shards (phase 11 (c))", launches=c["launches_per_merge"],
+            max_abs_err=c["max_abs_err"], tol=c["tol"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
+            shape=c["shape"], dtype=c["dtype"], whole_cache_ms=c["whole_ms"],
+            cold_copies=c["cold_copies"]))
+
+
 def main() -> int:
     import torch
 
@@ -2591,7 +3048,7 @@ def main() -> int:
 
     checked = {**kernel_phase(), **ssd_phase()}
     paths = {arch: slice_phase(card, arch, spec) for arch, spec in SLICES.items()}
-    log(json.dumps({"kernels": kernel_rows(checked, paths)}))
+    kernels = kernel_rows(checked, paths)
     train = train_phase(card)
     elastic = elastic_phase(card)
     tooling = tooling_phase(card, paths, train)
@@ -2601,6 +3058,9 @@ def main() -> int:
     testbed_s = time.perf_counter() - t0
     mesh = mesh_phase(card)
     families = mesh_families_phase(card)
+    serve = mesh_serve_phase(card)
+    shard_paths(kernels, serve)
+    log(json.dumps({"kernels": kernels}))
     log(card)
     for arch, (_, _, rates) in paths.items():
         log(f"rates {arch} [{card}]: prefill {rates['prefill_ms']:.2f} ms "
@@ -2645,6 +3105,18 @@ def main() -> int:
             f"busy {row['busy_share']:.1%} of a profiled step")
     log(f"mesh families: phase 10 took {families['seconds']:.1f} s")
     log("mesh families:", json.dumps(families))
+    for row in serve["full"]:
+        log(f"mesh serve rates {row['arch']} ({row['n_layers']} layers, tp, one "
+            f"{serve['backend']} rank) [{card}]: prefill {row['prefill_ms']:.2f} ms on the "
+            f"(1, 1, 1) mesh vs {row['plain_prefill_ms']:.2f} with no mesh, decode "
+            f"{row['decode_ms_per_step']:.2f} ms/step vs {row['plain_decode_ms_per_step']:.2f}")
+    for row in serve["shards"]:
+        log(f"mesh serve shards [{card}]: {row['shape']} {row['dtype']} window "
+            f"{row['window']}: {row['launches_per_merge']} shard calls and the merge "
+            f"{row['ms']:.4f} ms vs one whole-cache call {row['whole_ms']:.4f} ms (cold), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.3f} ms")
+    log(f"mesh serve: phase 11 took {serve['seconds']:.1f} s")
+    log("mesh serve:", json.dumps(serve))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

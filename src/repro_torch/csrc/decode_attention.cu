@@ -44,8 +44,17 @@
 //     strides; lengths are read from device memory, so the host never
 //     waits; only [len - window, len) (local layers) or [0, len) is read, and
 //     any cache length S works.
-// Rows with len == 0 are outside the contract (the reference returns the
-// mean of V there, this kernel returns 0).
+//   * a shard of a cache split along its sequence (a device mesh's rank
+//     holds keys [offset, offset + S) of each row): lengths and the window
+//     stay in global positions, and a block reads the part of the row's
+//     global range [len - window, len) that falls in its shard.  With an
+//     lse output, the block that writes a row's first output element of a
+//     head also writes that head's log-sum-exp m + log l over the shard's
+//     keys (from the cluster merge's max and sum), so that the ranks can
+//     merge their partial outputs.  A row with no key in its shard gets
+//     output 0 and log-sum-exp -inf (its weight in the merge is exactly 0).
+// Rows with len == 0 are outside the contract of a whole cache (the
+// reference returns the mean of V there, this kernel returns 0).
 
 #include <cooperative_groups.h>
 
@@ -71,6 +80,13 @@ struct DecodeArgs {
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, osh;
   float scale, cap;
   int window;
+  // A sequence shard: the global position of its first key, `offset` plus
+  // offsets[b] where that is not null; and the (B, H) f32 log-sum-exp output
+  // (null: not asked for) with its strides.
+  const int* offsets;
+  int offset;
+  float* lse;
+  long long lsb, lsh;
 };
 
 // Where a block sits: its split of the row's keys and its query heads.
@@ -85,10 +101,14 @@ __device__ __forceinline__ Work block_work(const DecodeArgs& a, int rank) {
   w.b = blockIdx.z;
   w.h0 = w.kh * a.q_per_kv + g * a.heads;
   w.nh = min(a.heads, a.q_per_kv - g * a.heads);
-  const int len = min(a.lengths[w.b], a.S);
-  const int k_first = a.window > 0 ? max(0, len - a.window) : 0;
-  w.k_begin = k_first + rank * a.chunk;
-  w.k_stop = min(len, w.k_begin + a.chunk);
+  // The row's keys in global positions, [first, len), shifted into the
+  // shard and cut to its [0, S); empty where the shard holds none of them.
+  const int off = a.offset + (a.offsets != nullptr ? a.offsets[w.b] : 0);
+  const int len = a.lengths[w.b];
+  const int first = a.window > 0 ? max(0, len - a.window) : 0;
+  const int stop = min(a.S, len - off);
+  w.k_begin = max(0, first - off) + rank * a.chunk;
+  w.k_stop = min(stop, w.k_begin + a.chunk);
   return w;
 }
 
@@ -158,6 +178,8 @@ __device__ void cluster_merge(const DecodeArgs& a, const Work& wk, const float* 
       sum = fmaf(f, rl[s * wk.nh + r], sum);
       o = fmaf(f, rx[s * slice + j], o);
     }
+    if (a.lse != nullptr && d == 0)
+      a.lse[wk.b * a.lsb + (wk.h0 + r) * a.lsh] = sum > 0.f ? mx + logf(sum) : -INFINITY;
     ob[r * a.osh + d] = from_f32<T>(sum > 0.f ? o / sum : 0.f);
   }
 }
@@ -672,24 +694,29 @@ extern "C" int repro_flash_decode_clusters(int dtype, int hd, int heads, int clu
 // (kernels/decode_attention.py, ``plan``): `cluster` blocks split each
 // row's keys into splits of `chunk` keys, and each of them serves `heads`
 // query heads of its KV head; `tile` must be the kernel's keys per stage.
-// window <= 0 and cap <= 0 disable the window and the softcap.  Returns a
-// cudaError_t.
-extern "C" int repro_flash_decode(int dtype, int hd, const void* q, const void* k,
-                                  const void* v, const int* lengths, void* o, int B, int H,
-                                  int K, int S, int cluster, int chunk, int tile, int heads,
-                                  long long qsb, long long qsh, long long ksb, long long kss,
-                                  long long ksh, long long vsb, long long vss, long long vsh,
-                                  long long osb, long long osh, float scale, int window,
-                                  float cap, void* stream) {
+// window <= 0 and cap <= 0 disable the window and the softcap.  A sequence
+// shard: the cache holds keys [offset + offsets[b], ... + S) of row b
+// (offsets may be null), lengths and window in global positions; lse, where
+// not null, takes each (row, head)'s f32 log-sum-exp at lse[b * lsb + h *
+// lsh].  Returns a cudaError_t.
+extern "C" int repro_flash_decode_shard(int dtype, int hd, const void* q, const void* k,
+                                        const void* v, const int* lengths, void* o,
+                                        const int* offsets, int offset, float* lse, int B,
+                                        int H, int K, int S, int cluster, int chunk, int tile,
+                                        int heads, long long qsb, long long qsh, long long ksb,
+                                        long long kss, long long ksh, long long vsb,
+                                        long long vss, long long vsh, long long osb,
+                                        long long osh, long long lsb, long long lsh,
+                                        float scale, int window, float cap, void* stream) {
   using namespace repro;
   if (B <= 0) return cudaSuccess;
   if (K <= 0 || H % K != 0 || heads <= 0 || heads > H / K || cluster <= 0 ||
       cluster > kMaxCluster || chunk <= 0 || (dtype != kFloat32 && dtype != kBFloat16))
     return cudaErrorInvalidValue;
   const int R = H / K;
-  const DecodeArgs a{q,   k,   v,   lengths, o,   R,   heads, (R + heads - 1) / heads,
-                     S,   chunk, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, osb,
-                     osh, scale, cap, window};
+  const DecodeArgs a{q,   k,   v,   lengths, o,   R,     heads, (R + heads - 1) / heads,
+                     S,   chunk, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, osh,
+                     scale, cap, window, offsets, offset, lse, lsb, lsh};
   const auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
 #define X(HD)                                                     \

@@ -38,8 +38,8 @@ SIGNATURES = {
     "repro_flash_prefill": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12
     + [_F, _I, _I, _F, _P],
-    "repro_flash_decode": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 8
-    + [_L] * 10
+    "repro_flash_decode_shard": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P] + [_I] * 8
+    + [_L] * 12
     + [_F, _I, _F, _P],
     "repro_flash_decode_smem": [_I, _I, _I],
     "repro_flash_decode_clusters": [_I, _I, _I, _I],

@@ -6,13 +6,19 @@ rows' lengths from device memory, and writes into an output the caller
 allocated; it launches on PyTorch's current stream and does not
 synchronise.  It runs only on CUDA tensors: the plain version for the CPU is
 ``ref.decode_attention_ref``.
+
+It also runs on a shard of a cache split along its sequence (a device
+mesh's rank holds keys [key_offset, key_offset + S) of each row): lengths
+and the window stay in global positions, and with ``lse`` it writes each
+(row, head)'s log-sum-exp over the shard's keys, which
+``ops.merge_decode_partials`` merges.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -102,12 +108,15 @@ def _device_plan(index, dtype, B, K, q_per_kv, S, hd, window) -> Plan:
                 f32=dtype == DTYPES[torch.float32])
 
 
-def split_keys(p: Plan, length: int, window: Optional[int], rank: int) -> range:
-    """The keys of a row of ``length`` entries that block ``rank`` of its
-    cluster reads (the kernel's block_work)."""
+def split_keys(p: Plan, length: int, window: Optional[int], rank: int, *, offset: int = 0,
+               S: Optional[int] = None) -> range:
+    """The keys (local positions) of a row of ``length`` entries (global)
+    that block ``rank`` of its cluster reads from a cache of ``S`` entries
+    holding global keys [offset, offset + S) (the kernel's block_work)."""
     first = max(0, length - window) if window else 0
-    begin = first + rank * p.chunk
-    return range(begin, min(length, begin + p.chunk))
+    stop = length - offset if S is None else min(S, length - offset)
+    begin = max(0, first - offset) + rank * p.chunk
+    return range(begin, min(stop, begin + p.chunk))
 
 
 def flash_decode(
@@ -120,9 +129,16 @@ def flash_decode(
     scale: float,
     window: Optional[int],
     softcap: Optional[float],
+    key_offset: Union[int, torch.Tensor, None] = None,
+    lse: Optional[torch.Tensor] = None,  # (B, H) f32
 ) -> None:
-    """Launches the kernel.  Each row must hold 1 <= length <= S; a row of
-    length 0 is outside the contract."""
+    """Launches the kernel.  A whole cache (no ``key_offset``): each row
+    must hold 1 <= length <= S; a row of length 0 is outside the contract.
+    A sequence shard: the cache holds global keys [key_offset, key_offset +
+    S) of each row (an int, or a (B,) int32 tensor on the kernel's device),
+    a row reads those of [length - window, length) that fall there, and a
+    row with none gets output 0 (and log-sum-exp -inf).  ``lse``, where
+    given, takes each (row, head)'s log-sum-exp over the keys read."""
     check_operands(q, k_cache, v_cache, out)
     B, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -138,12 +154,28 @@ def flash_decode(
         raise ValueError("lengths must be contiguous")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+    offsets, offset = None, 0
+    if isinstance(key_offset, torch.Tensor):
+        if (key_offset.dtype != torch.int32 or key_offset.shape != (B,)
+                or key_offset.device != q.device or not key_offset.is_contiguous()):
+            raise ValueError("key_offset must be an int or a contiguous (B,) int32 tensor on "
+                             "the kernel's device")
+        offsets = key_offset
+    elif key_offset is not None:
+        offset = int(key_offset)
+    lse_strides = (0, 0)
+    if lse is not None:
+        if lse.dtype != torch.float32 or lse.shape != (B, H) or lse.device != q.device:
+            raise ValueError("lse must be a (B, H) float32 tensor on the kernel's device")
+        lse_strides = lse.stride()
     p = device_plan(q.device, q.dtype, B, K, H // K, S, hd, window)
-    strides = [*q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3], *out.stride()[:2]]
-    err = _build.library().repro_flash_decode(
+    strides = [*q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3], *out.stride()[:2],
+               *lse_strides]
+    err = _build.library().repro_flash_decode_shard(
         DTYPES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, K, S, p.cluster, p.chunk, p.tile, p.heads,
-        *strides, float(scale), window or 0, float(softcap or 0.0),
+        lengths.data_ptr(), out.data_ptr(), None if offsets is None else offsets.data_ptr(),
+        offset, None if lse is None else lse.data_ptr(), B, H, K, S, p.cluster, p.chunk,
+        p.tile, p.heads, *strides, float(scale), window or 0, float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_decode")

@@ -19,7 +19,7 @@ to take instead.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -82,29 +82,69 @@ def decode_attention(
     q: torch.Tensor,  # (B, 1, H, hd)
     k_cache: torch.Tensor,  # (B, S, K, hd)
     v_cache: torch.Tensor,  # (B, S, K, hd)
-    lengths: torch.Tensor,  # (B,) valid entries per row
+    lengths: torch.Tensor,  # (B,) valid entries per row, in global positions
     *,
     scale: float,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """One-token attention over the cache; returns (B, 1, H, hd)."""
+    key_offset: Union[int, torch.Tensor, None] = None,
+    return_lse: bool = False,
+):
+    """One-token attention over the cache; returns (B, 1, H, hd).  On a
+    shard of a cache split along its sequence, ``key_offset`` (an int or a
+    (B,) tensor) is the global position of its first key; with
+    ``return_lse`` also the f32 (B, H) log-sum-exp over the keys read
+    (``merge_decode_partials`` merges shards)."""
     if not q.is_cuda:
         out = ref.decode_attention_ref(
             q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), lengths,
-            scale=scale, window=window, softcap=softcap,
+            scale=scale, window=window, softcap=softcap, key_offset=key_offset,
+            return_lse=return_lse,
         )
-        return out[:, None]
+        return (out[0][:, None], out[1]) if return_lse else out[:, None]
     _refuse_autograd("decode_attention", "models.layers.attention_decode", q, k_cache, v_cache)
-    out = torch.empty(q.shape[0], q.shape[2], q.shape[3], dtype=q.dtype, device=q.device)
+    B, _, H, hd = q.shape
+    out = torch.empty(B, H, hd, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, dtype=torch.float32, device=q.device) if return_lse else None
+    if isinstance(key_offset, torch.Tensor):
+        key_offset = key_offset.to(device=q.device, dtype=torch.int32).expand(B).contiguous()
     flash_decode(
         q[:, 0], k_cache, v_cache, lengths.to(torch.int32), out,
-        scale=scale, window=window, softcap=softcap,
+        scale=scale, window=window, softcap=softcap, key_offset=key_offset, lse=lse,
     )
     LAUNCHES["flash_decode"] += 1
-    B, _, H, hd = q.shape
     LAUNCH_SHAPES["flash_decode", (B, k_cache.shape[1], H, k_cache.shape[2], hd)] += 1
-    return out[:, None]
+    return (out[:, None], lse) if return_lse else out[:, None]
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
+    """The one statement of the shard merge: ``out`` (..., hd) a shard's
+    output, normalised over its own keys, and ``lse`` (out's shape without
+    hd) its f32 log-sum-exp; ``reduce(t, op)`` reduces ``t`` over the
+    shards, op "max" or "sum" (a stacked shard dim, or all-reduces over the
+    mesh dims that split the cache, ``layers.decode_merge``).  Each output
+    is rescaled by exp(lse_r - max lse) and the sum divided by the rescaled
+    sums, in f32; a shard with no key (lse -inf) weighs exactly 0.  Returns
+    the outputs' type.  Plain PyTorch: the glue after the kernel."""
+    top = reduce(lse, "max")
+    w = torch.exp(lse - torch.where(torch.isfinite(top), top, 0.0))[..., None]  # -inf -> 0
+    both = reduce(torch.cat([out.float() * w, w], dim=-1), "sum")
+    return (both[..., :-1] / both[..., -1:]).to(out.dtype)
+
+
+def merge_decode_partials(outs: Union[torch.Tensor, Sequence[torch.Tensor]],
+                          lses: Union[torch.Tensor, Sequence[torch.Tensor]]) -> torch.Tensor:
+    """The attention over a whole cache from its shards' partials
+    (``merge_partials`` over a first dim): each shard's output
+    (B, 1, H, hd) and log-sum-exp (B, H), stacked along a first dim or as
+    sequences."""
+    outs = torch.stack(list(outs)) if not isinstance(outs, torch.Tensor) else outs
+    lses = torch.stack(list(lses)) if not isinstance(lses, torch.Tensor) else lses
+
+    def over_shards(t, op):
+        return t.amax(dim=0, keepdim=True) if op == "max" else t.sum(dim=0)
+
+    return merge_partials(outs, lses.reshape(outs.shape[:-1]), over_shards)
 
 
 # --------------------------------------------------------------------------

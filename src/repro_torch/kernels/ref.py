@@ -4,13 +4,16 @@ These restate each kernel's math with materialized intermediates (no
 blocking, no online softmax) in the TPU kernels' layouts: (B, heads, S, hd)
 for attention, with the same finite ``MASK``, and (B, nh, nC, Q, ...) for
 the SSD intra-chunk block, all in f32.  Rows with no valid key are outside
-the attention kernels' contract: here, as in the JAX reference, such a row
-gets the mean of V.
+the attention kernels' contract over a whole cache: here, as in the JAX
+reference, such a row gets the mean of V.  On a shard of a cache split
+along its sequence (``key_offset``), or with ``return_lse``, such a row is
+in the contract and gets output 0 and log-sum-exp -inf: its weight in the
+merge of the shards' partials is exactly 0.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -51,12 +54,19 @@ def decode_attention_ref(
     q: torch.Tensor,  # (B, H, hd)
     k_cache: torch.Tensor,  # (B, K, S, hd)
     v_cache: torch.Tensor,  # (B, K, S, hd)
-    lengths: torch.Tensor,  # (B,)
+    lengths: torch.Tensor,  # (B,) in global positions
     *,
     scale: float,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
+    key_offset: Union[int, torch.Tensor, None] = None,  # scalar or (B,)
+    return_lse: bool = False,
+):
+    """The new token's attention over the keys [lengths - window, lengths)
+    (global positions) that the cache holds; a shard of a cache split along
+    its sequence holds keys [key_offset, key_offset + S).  With
+    ``return_lse`` also the f32 (B, H) log-sum-exp of the scaled, softcapped
+    logits over those keys."""
     B, H, hd = q.shape
     K, S = k_cache.shape[1], k_cache.shape[2]
     rep = H // K
@@ -65,13 +75,22 @@ def decode_attention_ref(
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     kp = torch.arange(S, device=q.device)[None, :]
+    if key_offset is not None:
+        kp = kp + torch.as_tensor(key_offset, device=q.device).reshape(-1, 1)
     ok = kp < lengths[:, None]
     if window is not None:
         ok &= kp >= (lengths[:, None] - window)
-    s = torch.where(ok[:, None, None, :], s, MASK)
+    ok = ok[:, None, None, :]
+    s = torch.where(ok, s, MASK)
     w = torch.softmax(s, dim=-1)
+    if key_offset is not None or return_lse:
+        w = torch.where(ok, w, 0.0)  # a row with no valid key: all weights 0
     o = torch.einsum("bkrs,bksd->bkrd", w, v_cache.float())
-    return o.reshape(B, H, hd).to(q.dtype)
+    o = o.reshape(B, H, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(torch.where(ok, s, -torch.inf), dim=-1)
+    return o, lse.reshape(B, H)
 
 
 def ssd_intra_chunk_ref(

@@ -17,17 +17,17 @@ shapes only, nothing allocated) and
   * at one device, the step's FLOPs and bytes come from
     ``trace_analysis.count`` of the whole step run once on ``meta`` and give
     the roofline terms on the H100's constants;
-  * a train cell at 256 or 512 devices runs the step itself on the fake
-    world (``mesh_train_count``): the meta state laid out by
+  * a cell at 256 or 512 devices runs its step itself on the fake world:
+    a train cell (``mesh_train_count``) with the meta state laid out by
     ``state_specs``, the batch by ``batch_spec``, ``grad_specs`` the
-    parameters' specs, under ``set_mesh``.  ``count`` of that run gives
-    one device's FLOPs and bytes (its local ops, as the reference's
-    ``flops_per_device``) and the collectives it issues, which
-    ``roofline.collective_traffic`` charges by 8-GPU node
-    (``mesh.NODE_SIZE``): NVLink inside a node, InfiniBand across;
-  * a serving cell at 256 or 512 devices has no collective term yet (it
-    needs prefill and decode on a mesh: ROADMAP Queue 1 item 11e) and it
-    stands as ``null``; its FLOPs and bytes are the one-device step's.
+    parameters' specs; a serving cell (``mesh_serving_count``) with the
+    parameters laid out by ``param_specs(..., "tp")``, the batch by
+    ``batch_spec`` and the decode state by ``decode_state_specs``; each
+    under ``set_mesh``.  ``count`` of that run gives one device's FLOPs
+    and bytes (its local ops, as the reference's ``flops_per_device``) and
+    the collectives it issues, which ``roofline.collective_traffic``
+    charges by 8-GPU node (``mesh.NODE_SIZE``): NVLink inside a node,
+    InfiniBand across.
 
 The cells are the reference's: ``production_config`` and ``opt_config``
 are its overrides, ``attn_impl="chunked"`` included, so the count is of
@@ -62,6 +62,7 @@ from ..models.sharding import (
     decode_state_specs,
     param_specs,
     place,
+    place_module,
     policy_for,
     set_mesh,
     to_placements,
@@ -81,8 +82,12 @@ MESHES: Dict[str, Tuple[Tuple[int, ...], Tuple[str, ...]]] = {
     "2x16x16": PRODUCTION_MESHES[True],
 }
 NO_TRAFFIC = {"ici": 0.0, "dcn": 0.0, "by_op": {}, "n": 0}
-SERVING_NOTE = ("not measured: needs prefill and decode on a mesh "
-                "(ROADMAP Queue 1 item 11e)")
+# What a serving cell's collective term at 256 or 512 devices charges: the
+# port gathers each weight, laid out by ``param_specs(..., "tp")``, whole at
+# its use, so the term is mostly all-gathers of the whole model per device.
+WEIGHT_GATHERS = ("charges the eager port's whole-weight all-gathers at each use (weights laid "
+                  "out by param_specs 'tp', gathered whole), not tensor parallelism on weight "
+                  "shards; not comparable to the reference's term (ROADMAP Queue 2 item 12)")
 
 
 # --------------------------------------------------------------------------
@@ -258,6 +263,26 @@ def mesh_train_count(cfg: ModelConfig, ocfg: OptConfig, mesh: DeviceMesh,
         return count(step, state, placed)
 
 
+def mesh_serving_count(cfg: ModelConfig, mesh: DeviceMesh, kind: str,
+                       batch: Dict[str, torch.Tensor], max_len: int) -> StepCount:
+    """``count`` of one serving step on ``mesh`` (a fake world's, on meta):
+    the model's parameters laid out by ``param_specs(..., "tp")``, ``batch``
+    (meta tensors) by ``batch_spec``, and for a decode step (``kind``
+    "decode", one new token against a ``max_len`` cache) the decode state
+    born laid out by ``decode_state_specs``, under ``set_mesh``: one rank's
+    FLOPs, bytes and collectives."""
+    sizes = axis_sizes(mesh)
+    model = get_model(cfg)
+    place_module(model, mesh, param_specs(cfg, dict(model.named_parameters()), sizes, "tp"))
+    placed = {n: place(t, mesh, batch_spec(cfg, tuple(t.shape), sizes, "tp"))
+              for n, t in batch.items()}
+    with set_mesh(mesh):
+        if kind == "prefill":
+            return count(make_prefill_step(model, max_len=max_len), placed)
+        state = _decode_state(cfg, model, placed["tokens"].shape[0], max_len)
+        return count(model.decode_step, state, placed["tokens"])
+
+
 def build_cell(arch: str, shape: str):
     """The cell on meta: ``(fn, args, trees, specs_for, info)``.  ``fn(*args)``
     is its step; ``trees`` maps "params", "optimizer" or "decode_state",
@@ -339,16 +364,20 @@ def run_cell(arch: str, shape: str, *, meshes: Sequence[str] = ("16x16",),
     one = None  # the whole step on one device, counted once
     for name in meshes:
         n_dev = math.prod(MESHES[name][0])
-        on_mesh = n_dev > 1 and info["kind"] == "train"
+        on_mesh = n_dev > 1
         t0 = time.time()
         with fake_world(n_dev):
             dmesh = make_mesh(name)
             per_dev = cell_bytes(trees, specs_for, dmesh)
             if on_mesh:
                 cfg_p = production_config(arch, shape)
-                step = mesh_train_count(cfg_p, opt_config(cfg_p), dmesh, trees["batch"],
-                                        microbatches=info["microbatches"],
-                                        policy=info["policy"])
+                if info["kind"] == "train":
+                    step = mesh_train_count(cfg_p, opt_config(cfg_p), dmesh, trees["batch"],
+                                            microbatches=info["microbatches"],
+                                            policy=info["policy"])
+                else:
+                    step = mesh_serving_count(cfg_p, dmesh, info["kind"], trees["batch"],
+                                              info["seq"])
         if not on_mesh:
             if one is None:
                 t0 = time.time()
@@ -370,12 +399,12 @@ def run_cell(arch: str, shape: str, *, meshes: Sequence[str] = ("16x16",),
                                    if step.flops else 0.0),
             "roofline": rl.roofline_terms(flops_per_device=step.flops,
                                           bytes_per_device=step.bytes, traffic=traffic),
-            "collective": None if (n_dev > 1 and not on_mesh) else traffic,
+            "collective": traffic,
         }
         if on_mesh:  # the counts are one rank's share of the step on the mesh
             art.update(count_scope="per device", collectives=step.collectives)
-        elif n_dev > 1:
-            art["collective_note"] = SERVING_NOTE
+            if info["kind"] != "train":
+                art["collective_basis"] = WEIGHT_GATHERS
         arts[name] = art
         _write(art, out_dir)
         print(rl.summarize_artifact(art))

@@ -9,6 +9,7 @@ Results land in ``artifacts/dryrun/*.json``; a cell whose artifacts all
 exist is skipped unless ``--force``.  Ends by printing the roofline table.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun_all [--mesh 1 --mesh 16x16 ...]
+      [--kind train|prefill|decode ...]
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import time
 import traceback
 from typing import List, Tuple
 
-from ..configs import cells
+from ..configs import SHAPES, cells
 from .dryrun import MESHES, artifact_path, run_cell
 from .roofline import summarize_artifact
 
@@ -34,6 +35,8 @@ def main(argv=None) -> int:
                     help=f"repeatable; default {' '.join(DEFAULT_MESHES)}")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--only-arch", default=None)
+    ap.add_argument("--kind", action="append", choices=("train", "prefill", "decode"),
+                    help="repeatable; the cells whose shape is of these kinds (default all)")
     args = ap.parse_args(argv)
     meshes = args.mesh or DEFAULT_MESHES
     os.makedirs(args.out, exist_ok=True)
@@ -41,6 +44,8 @@ def main(argv=None) -> int:
     todo: List[Tuple[str, str, List[str]]] = []
     for arch, shape in cells():
         if args.only_arch and arch != args.only_arch:
+            continue
+        if args.kind and SHAPES[shape][2] not in args.kind:
             continue
         missing = [m for m in meshes
                    if args.force or not os.path.exists(artifact_path(args.out, arch, shape, m))]

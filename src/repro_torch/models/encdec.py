@@ -15,6 +15,11 @@ cross-attention run the prefill kernel, the decode step's self-attention
 the decode kernel; the decode step's cross-attention against the K/V
 precomputed in ``decode_init`` is plain PyTorch, as the reference computes
 it outside any kernel.
+
+On a mesh (serving under tp, ``sharding.set_mesh``) the decode state is
+laid out by ``decode_state_specs`` (the cross K/V ``xk`` and ``xv`` with
+their KV heads over 'model' where they divide it), and the decode step's
+cross-attention runs on each rank's rows and KV heads.
 """
 
 from __future__ import annotations
@@ -23,9 +28,10 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import resolve_device, torch_dtype
+from . import sharding
 from .config import ModelConfig
 from .layers import (
     _project,
@@ -34,9 +40,12 @@ from .layers import (
     attn_init,
     cross_attn_apply,
     embed_rows,
+    mapped,
     mlp_apply,
     mlp_init,
     rms_norm,
+    set_layer,
+    write_cache,
 )
 from .lm import _attn_shapes, _cast, _fill, _mlp_shapes, _params, _Stacked, checkpointed
 from .sharding import constrain_residual
@@ -165,12 +174,12 @@ class EncDecLM(nn.Module):
         B, S = tokens.shape
         state = self.decode_init(B, max_len or S, memory)
         ks, vs = state["kv"]
-        x = self.embed[tokens]
+        x = embed_rows(self.embed, tokens)
         for i, p in enumerate(self.dec_blocks.layers()):
             h, (k, v) = attn_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), causal=True,
                                    return_kv=True)
-            ks[i, :, :S] = k
-            vs[i, :, :S] = v
+            write_cache(ks[i], k, 0)
+            write_cache(vs[i], v, 0)
             x = x + h
             x = x + cross_attn_apply(cfg, p["xattn"], rms_norm(x, p["ln_x"]), memory)
             x = x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["ln2"]))
@@ -181,33 +190,49 @@ class EncDecLM(nn.Module):
     def decode_init(self, batch: int, max_len: int, memory: Tensor) -> Dict[str, Any]:
         """Zero self-attention caches (L, B, max_len, K, hd), and the
         cross-attention K/V of ``memory`` computed once a request, (L, B,
-        S_enc, K, hd) each."""
+        S_enc, K, hd) each.  Under ``set_mesh``, each laid out by
+        ``decode_state_specs``."""
         cfg = self.cfg
         dev, dt = self.embed.device, self.embed.dtype
         L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        meshed = sharding.current_mesh() is not None
+        at = "meta" if meshed else dev
         shape = (L, batch, max_len, K, hd)
-        xk = torch.empty((L, *memory.shape[:2], K, hd), dtype=memory.dtype, device=dev)
-        xv = torch.empty_like(xk)
+        xk = torch.empty((L, *memory.shape[:2], K, hd), dtype=memory.dtype, device=at)
+        state = {"pos": torch.zeros((batch,), dtype=torch.int32, device=at),
+                 "kv": (torch.zeros(shape, dtype=dt, device=at),
+                        torch.zeros(shape, dtype=dt, device=at)),
+                 "xk": xk, "xv": torch.empty_like(xk)}
+        if meshed:
+            state = sharding.laid_out_zeros(cfg, state, dev)
+        wk, wv = self.dec_blocks.xattn["wk"], self.dec_blocks.xattn["wv"]
         for i in range(L):
-            xk[i] = _project(memory, self.dec_blocks.xattn["wk"][i])
-            xv[i] = _project(memory, self.dec_blocks.xattn["wv"][i])
-        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-                "kv": (torch.zeros(shape, dtype=dt, device=dev),
-                       torch.zeros(shape, dtype=dt, device=dev)),
-                "xk": xk, "xv": xv}
+            set_layer(state["xk"], i, _project(memory, wk[i]))
+            set_layer(state["xv"], i, _project(memory, wv[i]))
+        return state
 
     def _cross_decode(self, p, x: Tensor, xk: Tensor, xv: Tensor) -> Tensor:
         """The reference's decode cross-attention, inline: logits in the
         input type, then f32, scaled; the f32 softmax weights cast to the
-        cache's type before their product with V."""
+        cache's type before their product with V.  On a mesh each rank
+        attends its rows and the KV heads of its shard of ``xk``/``xv``."""
         q = _project(x, p["wq"])
+        if isinstance(q, DTensor):
+            kv_p = list(xk.placements)
+            q_p = [pl if isinstance(pl, Shard) and pl.dim in (0, 2) else Replicate()
+                   for pl in kv_p]
+            o = mapped(self._cross_attend, q_p, (q_p, kv_p, kv_p), None, q, xk, xv)
+        else:
+            o = self._cross_attend(q, xk, xv)
+        return _project(o, p["wo"], 2)
+
+    def _cross_attend(self, q: Tensor, xk: Tensor, xv: Tensor) -> Tensor:
         B, _, H, hd = q.shape
         K = xk.shape[2]
         qh = q.reshape(B, K, H // K, hd)
         logits = torch.einsum("bkrd,bskd->bkrs", qh, xk).float() * self.cfg.head_dim ** -0.5
         w = torch.softmax(logits, dim=-1).to(xv.dtype)
-        o = torch.einsum("bkrs,bskd->bkrd", w, xv).reshape(B, 1, H, hd)
-        return _project(o, p["wo"], 2)
+        return torch.einsum("bkrs,bskd->bkrd", w, xv).reshape(B, 1, H, hd)
 
     @torch.no_grad()
     def decode_step(self, state: Dict[str, Any], tokens: Tensor):
@@ -216,7 +241,7 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         pos = state["pos"]
         ks, vs = state["kv"]
-        x = self.embed[tokens]
+        x = embed_rows(self.embed, tokens)
         for i, p in enumerate(self.dec_blocks.layers()):
             h, _ = attn_decode_apply(cfg, p["attn"], rms_norm(x, p["ln1"]), (ks[i], vs[i]), pos)
             x = x + h

@@ -25,6 +25,17 @@ ops that contract (projections, attention, the embedding gather) run on
 each rank's local shard through ``local_map``, their weights gathered whole
 at use; elementwise ops and norms run as DTensor ops, and a plain tensor
 they make for a DTensor input (positions, masks) joins it replicated.
+
+The decode step on a mesh (serving, the tp policy) runs on a decode state
+laid out by ``sharding.decode_state_specs``: each rank writes the new
+token's K/V into its shard of the cache (``write_cache``) and attends on
+it.  Where the cache's KV heads split, each rank attends its heads (the
+kernel, or the plain version off CUDA); where its sequence splits, each
+rank attends its shard's keys with their global offset and returns its
+partial output and log-sum-exp, and the ranks merge them over the mesh
+dims that split the sequence with two all-reduces (the max of the
+log-sum-exps, then the rescaled outputs and sums in one tensor), as XLA
+partitions the reference's ``attention_decode``.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -55,6 +67,12 @@ def replicated_like(t: Tensor, x: Tensor) -> Tensor:
         return t
     mesh = x.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def replicated_value(t: Tensor) -> Tensor:
+    """A replicated DTensor's value as a plain tensor (each rank holds it
+    whole); a tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def kept_shards(x: DTensor, dims) -> list:
@@ -79,7 +97,8 @@ def on_mesh(mesh, base=None, **dims) -> list:
 
 def mapped(fn, out_placements, in_placements, in_grad_placements, *args):
     """``local_map`` of ``fn`` over ``args`` (the first a DTensor, whose mesh
-    it runs on), the inputs redistributed to ``in_placements``."""
+    it runs on), the inputs redistributed to ``in_placements``
+    (``in_grad_placements`` None where no gradient flows: serving)."""
     return local_map(fn, out_placements=out_placements, in_placements=in_placements,
                      in_grad_placements=in_grad_placements, device_mesh=args[0].device_mesh,
                      redistribute_inputs=True)(*args)
@@ -237,24 +256,51 @@ def attention_decode(
     *,
     cfg: ModelConfig,
     is_local: bool = False,
-) -> Tensor:
+    key_offset: int = 0,
+    return_lse: bool = False,
+):
     """One-token attention over the cache; local layers mask the entries
-    outside the sliding window."""
+    outside the sliding window.  A shard of a cache split along its
+    sequence holds keys [key_offset, key_offset + S) (``pos`` and the window
+    in global positions); with ``return_lse`` the output is normalised over
+    the shard's valid keys (0 where it has none) and comes with their f32
+    (B, H) log-sum-exp (-inf where none), which ``decode_merge`` merges."""
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     qh = q.reshape(B, K, H // K, hd)
     logits = torch.einsum("bkrd,bskd->bkrs", qh, k_cache).float()
     logits = logits * _qk_scale(cfg)
     logits = softcap(logits, cfg.attn_logit_softcap)
-    k_pos = torch.arange(S, device=q.device)
+    k_pos = torch.arange(S, device=q.device) + key_offset
     valid = k_pos[None, :] < pos[:, None]  # (B, S)
     if cfg.sliding_window is not None and is_local:
         valid &= k_pos[None, :] >= (pos[:, None] - cfg.sliding_window)
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
     logits = logits + torch.where(valid, zero, NEG_INF)[:, None, None, :]
-    w = torch.softmax(logits, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bkrs,bskd->bkrd", w, v_cache)
-    return out.reshape(B, 1, H, hd)
+    w = torch.softmax(logits, dim=-1)
+    if return_lse:
+        valid = valid[:, None, None, :]
+        w = torch.where(valid, w, 0.0)
+    out = torch.einsum("bkrs,bskd->bkrd", w.to(v_cache.dtype), v_cache).reshape(B, 1, H, hd)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(valid, logits, -torch.inf), dim=-1)
+    return out, lse.reshape(B, H)
+
+
+def decode_merge(out: Tensor, lse: Tensor, mesh, dims) -> Tensor:
+    """The ranks' partial decode attentions (``out`` (B, 1, H, hd), ``lse``
+    (B, H), each over the keys of its shard of the cache) merged over the
+    mesh dims ``dims`` that split the cache's sequence, on each rank's
+    local tensors: ``kops.merge_partials`` with an all-reduce of the max
+    log-sum-exp, then one of the rescaled outputs beside their weights."""
+
+    def over_ranks(t, op):
+        for d in dims:
+            t = funcol.all_reduce(t, op, (mesh, d))
+        return t
+
+    return kops.merge_partials(out, lse.reshape(out.shape[:-1]), over_ranks)
 
 
 def use_kernel(impl: str, on_cuda: bool, grad: bool) -> bool:
@@ -473,22 +519,108 @@ def attn_decode_apply(
 ):
     """Writes the new token's K/V into the caches at ``pos`` IN PLACE (the
     JAX version returns updated copies) and attends over ``pos + 1``
-    entries.  Returns (y, kv) with kv the same, now updated, tensors."""
-    B = x.shape[0]
+    entries.  Returns (y, kv) with kv the same, now updated, tensors.  On a
+    mesh, as the module's docstring says."""
+    pos = replicated_value(pos)
     q, k_new, v_new = attn_qkv(cfg, p, x, pos[:, None])
     k_cache, v_cache = kv
-    rows = torch.arange(B, device=x.device)
-    k_cache[rows, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, pos] = v_new[:, 0].to(v_cache.dtype)
-    if _kernel_impl(cfg, q, k_cache, v_cache):
-        out = kops.decode_attention(
-            q, k_cache, v_cache, pos + 1, scale=_qk_scale(cfg),
-            window=_kernel_window(cfg, is_local), softcap=cfg.attn_logit_softcap,
-        )
+    write_cache(k_cache, k_new, pos)
+    write_cache(v_cache, v_new, pos)
+    if isinstance(q, DTensor):
+        out = _decode_attention_mesh(cfg, q, k_cache, v_cache, pos + 1, is_local)
     else:
-        out = attention_decode(q, k_cache, v_cache, pos + 1, cfg=cfg, is_local=is_local)
+        out = _decode_attention(cfg, q, k_cache, v_cache, pos + 1, is_local)
     y = _project(out, p["wo"], 2)
     return y, (k_cache, v_cache)
+
+
+def _decode_attention(cfg: ModelConfig, q, k_cache, v_cache, lengths, is_local: bool,
+                      **shard):
+    """The decode attention on tensors: the kernel, or the plain version;
+    ``shard`` (key_offset, return_lse) for a shard of a sequence-split
+    cache."""
+    if _kernel_impl(cfg, q, k_cache, v_cache):
+        return kops.decode_attention(
+            q, k_cache, v_cache, lengths, scale=_qk_scale(cfg),
+            window=_kernel_window(cfg, is_local), softcap=cfg.attn_logit_softcap, **shard)
+    return attention_decode(q, k_cache, v_cache, lengths, cfg=cfg, is_local=is_local, **shard)
+
+
+def _decode_attention_mesh(cfg: ModelConfig, q: DTensor, k_cache: DTensor, v_cache: DTensor,
+                           lengths: Tensor, is_local: bool) -> DTensor:
+    """The decode attention on each rank's shard of the cache: q laid out
+    as the cache's rows and KV heads (whole where the cache's sequence
+    splits), the partials merged over the mesh dims that split the
+    sequence (``decode_merge``)."""
+    mesh = q.device_mesh
+    cache_p = list(k_cache.placements)
+    q_p = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in cache_p]
+    seq_dims = [i for i, p in enumerate(cache_p) if isinstance(p, Shard) and p.dim == 1]
+    b0, s0 = sharding.local_offsets(k_cache)[:2]
+
+    def local(ql, kl, vl):
+        lens = lengths[b0:b0 + ql.shape[0]]
+        if not seq_dims:
+            return _decode_attention(cfg, ql, kl, vl, lens, is_local)
+        out, lse = _decode_attention(cfg, ql, kl, vl, lens, is_local, key_offset=s0,
+                                     return_lse=True)
+        return decode_merge(out, lse, mesh, seq_dims)
+
+    return mapped(local, q_p, (q_p, cache_p, cache_p), None, q, k_cache, v_cache)
+
+
+def write_cache(cache: Tensor, new: Tensor, start) -> Tensor:
+    """Writes ``new`` (B, T, K, hd) into ``cache`` (B, S, K, hd) IN PLACE at
+    positions ``start`` + t of each row: ``start`` an int (prefill: the
+    prompt from 0) or a (B,) tensor (decode: one token at each row's
+    position).  On a mesh each rank writes its shard of the cache: its rows
+    and heads and, where the cache's sequence splits, the positions its
+    shard holds; ``new`` comes to it laid out as the cache but for the
+    sequence, which each rank holds whole.  Returns ``cache``."""
+    if not isinstance(cache, DTensor):
+        if isinstance(start, int):
+            cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
+        else:
+            rows = torch.arange(cache.shape[0], device=cache.device)
+            cache[rows, start] = new[:, 0].to(cache.dtype)
+        return cache
+    cache_p = list(cache.placements)
+    new_p = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in cache_p]
+    split = new_p != cache_p
+    b0, s0 = sharding.local_offsets(cache)[:2]
+
+    def local(c, n):
+        S = c.shape[1]
+        if isinstance(start, int):
+            lo, hi = max(start, s0), min(start + n.shape[1], s0 + S)
+            if lo < hi:
+                c[:, lo - s0:hi - s0] = n[:, lo - start:hi - start].to(c.dtype)
+            return c
+        rows = torch.arange(c.shape[0], device=c.device)
+        at = start[b0:b0 + c.shape[0]] - s0
+        if not split:
+            c[rows, at] = n[:, 0].to(c.dtype)
+            return c
+        # Only the rank whose shard holds a row's position writes it; the
+        # others write the row's entry at a clamped position back as it was.
+        inside = ((at >= 0) & (at < S))[:, None, None]
+        at = at.clamp(0, S - 1)
+        c[rows, at] = torch.where(inside, n[:, 0].to(c.dtype), c[rows, at])
+        return c
+
+    return mapped(local, cache_p, (cache_p, new_p), None, cache, replicated_like(new, cache))
+
+
+def set_layer(stack: Tensor, i: int, value: Tensor) -> None:
+    """``stack[i] = value`` IN PLACE; on a mesh ``value`` is laid out as the
+    stack's layer i (``stack``'s dim 0 is never split) and each rank copies
+    its shard."""
+    if not isinstance(stack, DTensor):
+        stack[i] = value
+        return
+    layer_p = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in stack.placements]
+    value = replicated_like(value, stack).redistribute(stack.device_mesh, layer_p)
+    stack.to_local()[i].copy_(value.to_local())
 
 
 # --------------------------------------------------------------------------

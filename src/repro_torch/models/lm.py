@@ -15,6 +15,11 @@ KV cache in decode.
 
 The module is built on the meta device; ``init`` (random weights with the
 reference's shapes and scales) materializes it on a device.
+
+Serving on a mesh: with the weights placed by ``param_specs(..., "tp")``
+and under ``sharding.set_mesh``, ``prefill`` and ``decode_step`` run on
+DTensors and keep the decode state laid out by ``decode_state_specs``
+(born so in ``decode_init``); each cache write lands on each rank's shard.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device, torch_dtype
 from .config import ModelConfig
+from . import sharding
 from .layers import (
     _project,
     attn_apply,
@@ -37,7 +43,9 @@ from .layers import (
     mlp_apply,
     mlp_init,
     rms_norm,
+    set_layer,
     softcap,
+    write_cache,
 )
 from .mamba2 import (
     check_prompt_len,
@@ -359,8 +367,8 @@ class LM(nn.Module):
                 cfg, p["attn"], rms_norm(x, p["ln1"]), is_local=cfg.is_local_layer(i),
                 return_kv=True,
             )
-            ks[i, :, :S] = k
-            vs[i, :, :S] = v
+            write_cache(ks[i], k, 0)
+            write_cache(vs[i], v, 0)
             x = self._block_tail(p, x, h)
         state["pos"].fill_(S)
         hidden = rms_norm(x[:, -1:], self.final_norm)
@@ -380,15 +388,15 @@ class LM(nn.Module):
             h, hstate, tail = mamba_apply(cfg, p["mamba"], rms_norm(x, p["ln1"]),
                                           return_conv_tail=True)
             x = x + h
-            hs[i] = hstate
-            convs[i] = tail
+            set_layer(hs, i, hstate)
+            set_layer(convs, i, tail)
             if self._shared_after(i):
                 sp = self.shared.weights()
                 h, (k, v) = attn_apply(cfg, sp["attn"], rms_norm(x, sp["ln1"]), return_kv=True)
                 x = x + h
                 x = x + mlp_apply(cfg, sp["mlp"], rms_norm(x, sp["ln2"]))
-                state["shared_kv"][0][inv, :, :S] = k
-                state["shared_kv"][1][inv, :, :S] = v
+                write_cache(state["shared_kv"][0][inv], k, 0)
+                write_cache(state["shared_kv"][1][inv], v, 0)
                 inv += 1
         state["pos"].fill_(S)
         return x
@@ -400,9 +408,17 @@ class LM(nn.Module):
         """Zero decode state: dense KV caches (L, B, max_len, K, hd); for the
         SSM families the per-layer SSM state (L, B, nh, hd, N) in f32 and conv
         window (L, B, W-1, C), and the hybrid's shared-block caches
-        (n_calls, B, max_len, K, hd)."""
+        (n_calls, B, max_len, K, hd).  Under ``set_mesh``, each laid out by
+        ``decode_state_specs``."""
+        dev = self.embed.device
+        if sharding.current_mesh() is not None:
+            return sharding.laid_out_zeros(self.cfg, self._zero_state(batch, max_len, "meta"),
+                                           dev)
+        return self._zero_state(batch, max_len, dev)
+
+    def _zero_state(self, batch: int, max_len: int, dev) -> Dict[str, Any]:
         cfg = self.cfg
-        dev, dt = self.embed.device, self.embed.dtype
+        dt = self.embed.dtype
         state: Dict[str, Any] = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
         kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         if not self.is_ssm:
@@ -450,8 +466,8 @@ class LM(nn.Module):
         for i, p in enumerate(self.blocks.layers()):
             h, new = mamba_decode_step(cfg, p["mamba"], rms_norm(x, p["ln1"]),
                                        {"h": hs[i], "conv": convs[i]})
-            hs[i] = new["h"]
-            convs[i] = new["conv"]
+            set_layer(hs, i, new["h"])
+            set_layer(convs, i, new["conv"])
             x = x + h
             if shared_kv is not None and self._shared_after(i):
                 sp = self.shared.weights()

@@ -29,8 +29,19 @@ them.  The gated norm's mean over the whole d_inner is reduced over
 'model' and of each mixer weight over the axes its spec splits; the norm's
 all-reduce; the output's reduce-scatter back into x's sequence shards; in
 the backward the gradients' reductions to the weights' layouts and to x's.
-Where the heads do not divide 'model' (and for prefill's final state and
-conv tail), the mixer runs whole on each rank's rows.
+Where the heads do not divide 'model', the mixer runs whole on each rank's
+rows.  Prefill's conv tail (the last W-1 pre-conv activations) is the
+projection of the last W-1 positions onto in_proj's x, B and C columns,
+on each rank's rows.
+
+The decode step on a mesh (serving) splits the heads over 'model' in the
+same way: each rank projects its token onto its heads' z and dt columns and
+onto all of x, B and C, updates its heads' SSM state (its shard of the
+state, laid out by ``decode_state_specs``), and the gated norm and
+out_proj run as in prefill.  The conv window's spec splits its channels
+evenly over 'model', which does not follow the heads: each rank gathers
+the window at use, convolves its heads' channels and B and C, and keeps
+its spec's columns of the new window.
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops as kops
 from . import sharding
@@ -174,9 +185,11 @@ def _mixer(cfg: ModelConfig, p, x: Tensor, h0: Optional[Tensor], nh: int):
     return y * F.silu(z), h, xBC_pre
 
 
-def _heads(cfg: ModelConfig, p, m: int, k: int):
+def _heads(cfg: ModelConfig, p, m: int, k: int, *, whole_xbc: bool = False):
     """The mixer's weights of heads [m k, (m + 1) k): their columns of z, x
-    and dt in in_proj, of x in the conv, and B and C whole (one group)."""
+    and dt in in_proj, of x in the conv, and B and C whole (one group).
+    With ``whole_xbc`` in_proj's columns of x, B and C are all of them (the
+    decode step keeps every channel's conv window)."""
     di, N, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     dev = p["in_proj"].device
 
@@ -184,7 +197,8 @@ def _heads(cfg: ModelConfig, p, m: int, k: int):
         return torch.arange(start, start + n, device=dev)
 
     dl = k * hd
-    xs = [span(di + m * dl, dl), span(2 * di, 2 * N)]
+    xs = ([span(di, di + 2 * N)] if whole_xbc
+          else [span(di + m * dl, dl), span(2 * di, 2 * N)])
     cols = torch.cat([span(m * dl, dl), *xs, span(2 * di + 2 * N + m * k, k)])
     conv = torch.cat([span(m * dl, dl), span(di, 2 * N)])
     heads = slice(m * k, (m + 1) * k)
@@ -225,7 +239,7 @@ def _mamba_apply_mesh(cfg: ModelConfig, p, x: DTensor, h0, return_conv_tail: boo
     rows = kept_shards(x, (0,))  # the batch's split kept, the sequence gathered
     M = sharding.axis_sizes(mesh).get("model", 1)
     nh = cfg.n_ssm_heads
-    if M == 1 or nh % M or h0 is not None or return_conv_tail:
+    if M == 1 or nh % M or h0 is not None:
         # The mixer whole on each rank's rows.
         names = list(p)
 
@@ -250,16 +264,29 @@ def _mamba_apply_mesh(cfg: ModelConfig, p, x: DTensor, h0, return_conv_tail: boo
                   (rows,) + (on_mesh(mesh),) * len(_MIXER),
                   (on_mesh(mesh, rows, model=Partial()),) + (weights_grad,) * len(_MIXER),
                   x, *(p[n] for n in _MIXER))
-    # The gated norm over the whole d_inner (its mean reduced over 'model'),
-    # then out_proj on each rank's rows of it: a partial sum over 'model',
-    # reduced into x's layout.
+    out = _gated_out(p, g, x, rows)
+    if not return_conv_tail:
+        return out, h
+    S, W, di, N = x.shape[1], cfg.ssm_conv_width, cfg.d_inner, cfg.ssm_state
+    tail = local_with_replicated(
+        lambda xl, w: _project(xl[:, S - (W - 1):], w[:, di:2 * di + 2 * N]), x, rows,
+        p["in_proj"])
+    return out, h, tail
+
+
+def _gated_out(p, g: DTensor, x: DTensor, rows) -> DTensor:
+    """The gated norm of the heads' outputs ``g`` (their d_inner over
+    'model') over the whole d_inner (its mean reduced over 'model'), then
+    out_proj on each rank's rows of it: a partial sum over 'model', reduced
+    into x's layout."""
+    mesh = x.device_mesh
     y = rms_norm(g, p["norm"])
     y_p = on_mesh(mesh, rows, model=Shard(2))
     out = mapped(_project, on_mesh(mesh, rows, model=Partial()),
                  (y_p, on_mesh(mesh, model=Shard(0))),
                  (y_p, on_mesh(mesh, partial_where_sharded(rows), model=Shard(0))),
                  y, p["out_proj"])
-    return out.to(x.dtype).redistribute(mesh, x.placements), h
+    return out.to(x.dtype).redistribute(mesh, x.placements)
 
 
 # --------------------------------------------------------------------------
@@ -278,7 +305,10 @@ def mamba_decode_step(
     cfg: ModelConfig, p, x: Tensor, state: Dict[str, Tensor]
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, 1, D) -> (B, 1, D) and the new state (fresh tensors; ``state``
-    is only read)."""
+    is only read).  On a mesh, as the module's docstring says: the new
+    state comes laid out as ``state``."""
+    if isinstance(x, DTensor):
+        return _mamba_decode_mesh(cfg, p, x, state)
     B = x.shape[0]
     di, N, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     zxbcdt = _project(x, p["in_proj"])[:, 0]  # (B, E)
@@ -299,3 +329,62 @@ def mamba_decode_step(
     y = rms_norm(y.reshape(B, di) * F.silu(z), p["norm"])
     out = _project(y, p["out_proj"]).to(x.dtype)[:, None, :]
     return out, {"h": h, "conv": window[:, 1:, :]}
+
+
+def _mamba_decode_mesh(cfg: ModelConfig, p, x: DTensor, state: Dict[str, Tensor]):
+    mesh = x.device_mesh
+    rows = kept_shards(x, (0,))
+    M = sharding.axis_sizes(mesh).get("model", 1)
+    nh, hd, di, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_inner, cfg.ssm_state
+    h, conv = state["h"], state["conv"]
+    conv_p = list(conv.placements)
+    whole_conv = [Replicate() if isinstance(pl, Shard) and pl.dim == 2 else pl for pl in conv_p]
+    if M == 1 or nh % M:
+        # The step whole on each rank's rows; the new state is then laid
+        # out as ``state`` (each rank keeps its shard).
+        names = list(p)
+        h_rows, conv_rows = kept_shards(h, (0,)), kept_shards(conv, (0,))
+
+        def whole(xl, hl, cl, *ws):
+            out, new = mamba_decode_step(cfg, dict(zip(names, ws)), xl, {"h": hl, "conv": cl})
+            return out, new["h"], new["conv"]
+
+        out, h_new, conv_new = mapped(
+            whole, (rows, h_rows, conv_rows),
+            (rows, h_rows, conv_rows) + (on_mesh(mesh),) * len(names), None,
+            x, h, conv, *(p[n] for n in names))
+        return out, {"h": h_new.redistribute(mesh, h.placements),
+                     "conv": conv_new.redistribute(mesh, conv_p)}
+    k = nh // M
+    C = di + 2 * N
+    conv_cols = conv.to_local().shape[-1]
+
+    def heads(xl, hl, cl, *ws):
+        m = mesh["model"].get_local_rank()
+        dl = k * hd
+        # z and dt of this rank's heads, and all of x, B and C (the window
+        # keeps every channel); the conv of its heads' x and of B and C.
+        sl = _heads(cfg, dict(zip(_MIXER, ws)), m, k, whole_xbc=True)
+        z, xBC, dt = torch.split(_project(xl, sl["in_proj"])[:, 0], [dl, C, k], dim=-1)
+        window = torch.cat([cl, xBC[:, None, :]], dim=1)  # (B, W, C)
+        mine = torch.cat([torch.arange(m * dl, (m + 1) * dl, device=xl.device),
+                          torch.arange(di, C, device=xl.device)])
+        conv_out = torch.einsum("bwc,wc->bc", window[:, :, mine], sl["conv_w"]) + sl["conv_b"]
+        xs, Bm, Cm = torch.split(F.silu(conv_out), [dl, N, N], dim=-1)
+        dt = F.softplus(dt.float() + sl["dt_bias"])  # (B, k)
+        dA = torch.exp(dt * -torch.exp(sl["A_log"]))
+        xh = xs.reshape(-1, k, hd)
+        dBx = ((dt[..., None].to(xh.dtype) * xh)[..., None] * Bm[:, None, None, :]).float()
+        h_new = hl.float() * dA[..., None, None] + dBx
+        y = torch.matmul(h_new, Cm.float()[:, None, :, None])[..., 0]  # (B, k, hd)
+        y = y.to(xl.dtype) + xh * sl["D"][None, :, None].to(xh.dtype)
+        g = (y.reshape(-1, dl) * F.silu(z))[:, None, :]
+        c0 = m * conv_cols if conv_cols < C else 0
+        return g, h_new, window[:, 1:, c0:c0 + conv_cols]
+
+    h_p = list(h.placements)
+    g, h_new, conv_new = mapped(
+        heads, (on_mesh(mesh, rows, model=Shard(2)), h_p, conv_p),
+        (rows, h_p, whole_conv) + (on_mesh(mesh),) * len(_MIXER), None,
+        x, h, conv, *(p[n] for n in _MIXER))
+    return _gated_out(p, g, x, rows), {"h": h_new, "conv": conv_new}

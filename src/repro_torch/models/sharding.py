@@ -34,6 +34,13 @@ for a block of code as ``jax.set_mesh`` does.  A constraint changes a
 DTensor's layout (``redistribute``), never its values; with no mesh, or on
 a plain tensor, it returns its input, as the reference's ``try/except``
 leaves an array outside a mesh as it is.
+
+Serving reads the same mesh: under ``set_mesh`` a model's ``decode_init``
+returns its decode state born laid out by ``decode_state_specs``
+(``laid_out_zeros``: each rank allocates only its shard), the counterpart
+of the reference's ``out_shardings``, and prefill and decode write their
+caches into each rank's shard (``models.layers.write_cache``,
+``set_layer``).
 """
 
 from __future__ import annotations
@@ -325,6 +332,42 @@ def to_placements(spec: Spec, mesh: DeviceMesh, shape: Sequence[int]) -> List[Pl
             raise ValueError(f"spec {spec}: dim {d} of {tuple(shape)} does not divide over "
                              f"{axes} ({_size(sizes, axes)})")
     return placements
+
+
+def local_offsets(t: DTensor) -> Tuple[int, ...]:
+    """The global index, per dim, of the first element of this rank's shard
+    of ``t``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    return tuple(compute_local_shape_and_global_offset(t.shape, t.device_mesh,
+                                                       t.placements)[1])
+
+
+def laid_out_zeros(cfg: ModelConfig, state: Any, device) -> Any:
+    """Zeros of ``state``'s structure, shapes and types (its tensors, on
+    meta, say only those) laid out by ``decode_state_specs`` over the
+    current mesh: each rank allocates its shard on ``device``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = _MESH.get()
+    specs = decode_state_specs(cfg, state, axis_sizes(mesh))
+
+    def zeros(t, spec):
+        pl = to_placements(spec, mesh, t.shape)
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        return DTensor.from_local(torch.zeros(local, dtype=t.dtype, device=device), mesh, pl,
+                                  run_check=False, shape=t.shape, stride=t.stride())
+
+    return _zip_map(zeros, state, specs)
+
+
+def _zip_map(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over a tree of tensors and its tree of specs."""
+    if isinstance(tree, Mapping):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
 
 
 def whole(t: torch.Tensor) -> torch.Tensor:

@@ -3,6 +3,14 @@
 The port of ``repro.serve.engine``.  ``Engine`` runs a synchronous batched
 loop: greedy or temperature sampling and early stop on EOS.  As in the JAX
 engine, each step's sampled tokens go to the host before the next decode.
+
+On a device mesh: with the model placed by ``sharding.place_module(model,
+mesh, param_specs(cfg, params, sizes, "tp"))``, ``generate`` called under
+``sharding.set_mesh(mesh)`` lays the batch out by ``batch_spec`` and runs
+both steps on DTensors, the decode state laid out by
+``decode_state_specs``; the logits are gathered whole before sampling, and
+the sampled tokens laid out by ``batch_spec`` again.  Every rank samples
+the same tokens (temperature sampling: from generators seeded alike).
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 
 from .. import resolve_device
 from ..models import EncDecLM, LM
+from ..models import sharding
 
 Model = Union[LM, EncDecLM]
 
@@ -87,12 +96,13 @@ class Engine:
         the engine's device."""
         if temperature > 0.0 and generator is None:
             raise ValueError("temperature sampling needs a torch.Generator")
+        batch = {k: self._laid_out(v) for k, v in batch.items()}
         logits, state = self._prefill(batch)
         B = batch["tokens"].shape[0]
         outs: List[np.ndarray] = []
         done = np.zeros((B,), bool)
         for _ in range(n_steps):
-            last = logits[:, -1]
+            last = sharding.whole(logits)[:, -1]
             if temperature > 0.0:
                 probs = torch.softmax(last / temperature, dim=-1)
                 nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
@@ -104,5 +114,14 @@ class Engine:
                 done |= nxt_np == self.eos_id
                 if done.all():
                     break
-            logits, state = self._decode(state, nxt[:, None])
+            logits, state = self._decode(state, self._laid_out(nxt[:, None]))
         return GenerationResult(tokens=np.stack(outs, axis=1), steps=len(outs))
+
+    def _laid_out(self, t: torch.Tensor) -> torch.Tensor:
+        """A batch tensor laid out by ``batch_spec`` (tp) over the current
+        mesh; with no mesh, or a DTensor already, as it is."""
+        mesh = sharding.current_mesh()
+        if mesh is None or isinstance(t, sharding.DTensor):
+            return t
+        sizes = sharding.axis_sizes(mesh)
+        return sharding.place(t, mesh, sharding.batch_spec(self.cfg, tuple(t.shape), sizes, "tp"))

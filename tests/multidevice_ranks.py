@@ -1,4 +1,5 @@
-"""The ranks of tests/test_torch_multidevice.py: gloo processes on the CPU.
+"""The ranks of tests/test_torch_multidevice.py and
+tests/test_torch_serve_mesh.py: gloo processes on the CPU.
 
 ``launch(group, tmp)`` starts ``WORLD`` ranks with ``torch.multiprocessing``
 (spawn), joined through a ``FileStore`` under ``tmp`` (no TCP port, so runs
@@ -478,5 +479,80 @@ def _group_families(rank, arrays, spec, tmp):
                                                            "int8": int8}
 
 
+# ---------------------------------------------------------------------------
+# Group "serve": serving on a mesh (tests/test_torch_serve_mesh.py)
+# ---------------------------------------------------------------------------
+def _flat_state(state, prefix=""):
+    """(path, leaf) of a decode state: dict keys and tuple positions joined
+    by dots ("kv.0", "ssm.h", "pos")."""
+    if isinstance(state, dict):
+        for k, v in state.items():
+            yield from _flat_state(v, f"{prefix}{k}.")
+    elif isinstance(state, (tuple, list)):
+        for i, v in enumerate(state):
+            yield from _flat_state(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], state
+
+
+def _serve_case(arrays, case):
+    """One smoke config served on its mesh through ``Engine.generate``
+    (greedy, ``case["steps"]`` tokens), the model placed by
+    ``param_specs(..., "tp")``: the tokens, every step's logits whole, the
+    decode state's placements after each step beside ``to_placements`` of
+    the reference's spec, and the collectives of the prefill step and of
+    the first decode step (``trace_analysis.count``)."""
+    from repro_torch.launch import trace_analysis
+    from repro_torch.models import sharding
+    from repro_torch.serve import Engine
+
+    mesh = _mesh(case["mesh"])
+    sizes = sharding.axis_sizes(mesh)
+    cfg = _cfg(case["arch"], sharding_policy="tp")
+    prefix = f"serve/{case['arch']}/"
+    model = _model(cfg, arrays, prefix + "params/")
+    sharding.place_module(model, mesh, sharding.param_specs(
+        cfg, dict(model.named_parameters()), sizes, "tp"))
+    batch = {k: torch.from_numpy(arrays[prefix + f"batch/{k}"]) for k in case["batch_keys"]}
+    eng = Engine(model, max_len=case["max_len"], device="cpu")
+    logits, placements, collectives = [], [], {}
+    want = {}
+
+    def watched(kind, fn):
+        def run(*args):
+            out = {}
+            if kind in collectives:
+                out["r"] = fn(*args)
+            else:
+                collectives[kind] = trace_analysis.count(
+                    lambda: out.update(r=fn(*args))).collectives
+            lg, state = out["r"]
+            logits.append(sharding.whole(lg)[:, -1].numpy())
+            leaves = dict(_flat_state(state))
+            placements.append({k: _placements(v) for k, v in leaves.items()})
+            for k, v in leaves.items():
+                sp = tuple(tuple(e) if isinstance(e, list) else e for e in case["specs"][k])
+                want[k] = [repr(pl) for pl in sharding.to_placements(sp, mesh, v.shape)]
+            return lg, state
+        return run
+
+    eng._prefill, eng._decode = watched("prefill", eng._prefill), watched("decode", eng._decode)
+    t0 = time.perf_counter()
+    with sharding.set_mesh(mesh):
+        res = eng.generate(batch, case["steps"])
+    seconds = time.perf_counter() - t0
+    return ({f"{case['name']}/logits": np.stack(logits), f"{case['name']}/tokens": res.tokens},
+            dict(placements=placements, want=want, collectives=collectives, seconds=seconds))
+
+
+def _group_serve(rank, arrays, spec, tmp):
+    out_arrays, out = {}, {}
+    for case in spec["serve"]:
+        a, row = _serve_case(arrays, case)
+        out_arrays.update(a)
+        out[case["name"]] = row
+    return out_arrays, out
+
+
 GROUPS = {"mesh": _group_mesh, "elastic": _group_elastic, "all": _group_all,
-          "families": _group_families}
+          "families": _group_families, "serve": _group_serve}

@@ -527,3 +527,48 @@ def test_mesh_families_spec_is_published_widths_cut_in_depth_only():
         assert set(cut) == {"n_layers"}
         assert over.get("int8_state", False) == dryrun.opt_config(get_config(arch)).int8_state
         assert get_config(arch).replace(**cut).d_model == get_config(arch).d_model
+
+
+def test_mesh_serve_phase_on_cpu():
+    """Phase 11 on the CPU: (a) through the same code at the smoke size
+    (stablelm, mamba2, seamless), (b) the MoE, hybrid and windowed smoke
+    configs, on a one-rank gloo group's (1, 1, 1) mesh against no mesh,
+    bit-equal; (c) the plain decode on sequence shards of a small cache,
+    merged, against the whole cache, with empty shards."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        full = [(get_smoke_config(a).replace(dtype="float32"), prompt, None)
+                for a, prompt in (("stablelm_12b", 12), ("mamba2_2p7b", 32),
+                                  ("seamless_m4t_large_v2", 12))]
+        shards = [dict(B=3, S=64, shards=8, H=4, K=2, hd=16, max_len=64),
+                  dict(B=3, S=64, shards=8, H=4, K=2, hd=16, window=10, softcap=50.0,
+                       max_len=40)]
+        out = smoke.mesh_serve_phase("CPU", device="cpu", full=full, shards=shards)
+    finally:
+        torch.set_num_threads(threads)
+    assert (out["backend"], out["mesh"]) == ("gloo", [1, 1, 1])
+    assert [r["arch"] for r in out["full"]] == [c.arch_id for c, _, _ in full]
+    assert len(out["smoke"]) == len(smoke.MESH_SERVE["smoke"])
+    for row in out["full"] + out["smoke"]:
+        assert row["tokens_equal"] and row["logits_bit_equal"] and row["placements_ok"], row
+    (dense, windowed) = out["shards"]
+    assert dense["launches_per_merge"] == 0 and windowed["empty_shard_rows"] > 0
+    for row in (dense, windowed):  # the merge's gate refused both planted faults
+        assert set(row["controls_refused"]) == {"lse zeroed", "key_offset ignored"}, row
+    assert "ms" not in dense
+
+
+def test_mesh_serve_spec_is_published_widths():
+    """Phase 11 (a) serves ``SLICES``' models at their widths and full
+    depth; (b)'s gemma2 cache is longer than its window; (c)'s first case
+    is decode_32k's local shape at 16 x 16."""
+    from repro_torch.configs import SHAPES
+
+    assert all(not smoke.SLICES[a].get("cut") for a in smoke.MESH_SERVE["full"])
+    (gemma,) = [c for c in smoke.MESH_SERVE["smoke"] if c[0] == "gemma2_2b"]
+    assert gemma[2] > get_smoke_config("gemma2_2b").sliding_window
+    seq, batch, _ = SHAPES["decode_32k"]
+    first = smoke.MESH_SERVE["shards"][0]
+    assert (first["B"], first["S"], first["shards"]) == (batch // 16, seq, 16)
+    assert first["S"] // first["shards"] == seq // 16

@@ -147,6 +147,59 @@ def ssd_inputs(cuda, B, S, nh, hd, N, td, seed=2, a_scale=0.2):
     return x, a, xbc[..., nh * hd : nh * hd + N], xbc[..., nh * hd + N :]
 
 
+class TestDecodeShardsOnCard:
+    """``flash_decode`` on sequence shards of a cache (``key_offset``,
+    ``return_lse``): each shard's output and log-sum-exp against the plain
+    version's on the same shard (an empty shard: output 0, log-sum-exp
+    -inf), and the shards merged by ``ops.merge_decode_partials`` against
+    the whole-cache kernel and the plain version, one launch a call."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shards,S,H,K,hd,lengths,kw", [
+        (1, 545, 8, 2, 160, [545, 300, 77, 1], dict()),
+        (2, 512, 8, 2, 128, [256, 257, 255, 1], dict()),
+        (5, 500, 8, 2, 64, [500, 100, 101, 7], dict(window=150)),
+        # decode_32k's local shape at 16 x 16, cut in length
+        (16, 2048, 32, 8, 160, [2048, 1000, 129, 1, 2047, 1500, 64, 900], dict()),
+        # gemma2's window and softcap at hd 256: windows across shard edges
+        (8, 1024, 8, 4, 256, [1024, 700, 129, 128], dict(window=300, softcap=50.0)),
+    ])
+    def test_shards_merge_to_the_whole(self, cuda, dtype, shards, S, H, K, hd, lengths, kw):
+        td = DTYPES[dtype]
+        g = torch.Generator(device=cuda).manual_seed(3)
+        B = len(lengths)
+        q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(td)
+        kc, vc = (torch.randn(B, S, K, hd, generator=g, device=cuda).to(td) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        kw = dict(kw, scale=hd ** -0.5)
+        whole = ops.decode_attention(q, kc, vc, lens, **kw)
+        n = ops.LAUNCHES["flash_decode"]
+        outs, lses = [], []
+        cut = S // shards
+        for i in range(shards):
+            lo = i * cut
+            offset = lo if i % 2 else torch.full((B,), lo, dtype=torch.int32, device=cuda)
+            o, lse = ops.decode_attention(q, kc[:, lo:lo + cut], vc[:, lo:lo + cut], lens,
+                                          key_offset=offset, return_lse=True, **kw)
+            po, plse = ref.decode_attention_ref(
+                q[:, 0], kc[:, lo:lo + cut].transpose(1, 2), vc[:, lo:lo + cut].transpose(1, 2),
+                lens, key_offset=lo, return_lse=True, **kw)
+            assert_close(o[:, 0], po, dtype)
+            empty = torch.isneginf(plse)
+            assert torch.equal(torch.isneginf(lse), empty)
+            assert (o[:, 0][empty] == 0).all()
+            np.testing.assert_allclose(lse[~empty].cpu().numpy(), plse[~empty].cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5)
+            outs.append(o)
+            lses.append(lse)
+        assert ops.LAUNCHES["flash_decode"] == n + shards
+        merged = ops.merge_decode_partials(outs, lses)
+        assert_close(merged, whole, dtype)
+        plain = ref.decode_attention_ref(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lens,
+                                         **kw)[:, None]
+        assert_close(merged, plain, dtype)
+
+
 class TestSSDOnCard:
     """The SSD intra-chunk kernel against its plain version, and ops.ssd
     against the model's plain ssd_chunked, on the card."""

@@ -162,6 +162,118 @@ def check_plan(B, K, R, S, hd, window, f32):
     return p
 
 
+# Sequence shards of a decode cache: (shards, S, lengths, window, softcap).
+# S is cut into equal shards; lengths at a shard's edge (a multiple of
+# S / shards), one short of it and one past it, a row of length 1 (every
+# shard but the first empty), the whole cache; windows that cross shard
+# edges and leave the first shards empty.
+SHARD_CASES = [
+    (1, 40, [40, 17, 1], None, None),
+    (2, 40, [20, 21, 19, 1], None, None),
+    (5, 40, [16, 24, 40, 1, 9], 9, None),
+    (8, 40, [5, 10, 38, 1, 40], 7, 50.0),
+    (8, 24, [24, 13, 3, 16], 8, 50.0),
+    (5, 40, [40, 33, 8, 2], None, 30.0),
+]
+
+
+def shards_of(S, n):
+    return [(i * (S // n), (i + 1) * (S // n)) for i in range(n)]
+
+
+class TestDecodeShards:
+    """The plain decode attention on sequence shards of a cache (a mesh's
+    ranks' shards): each shard's output and log-sum-exp with its keys'
+    global offset, merged by ``ops.merge_decode_partials``, equal the
+    whole-cache call; a shard with no valid key gives output 0 and
+    log-sum-exp -inf, exactly 0 weight."""
+
+    @staticmethod
+    def inputs(dtype, S, lengths, seed=9):
+        rng = np.random.default_rng(seed)
+        B = len(lengths)
+        (_, q), (_, kc), (_, vc) = (pair(rng, s, dtype) for s in
+                                    [(B, 1, 8, 16), (B, S, 2, 16), (B, S, 2, 16)])
+        return q, kc, vc, torch.tensor(lengths, dtype=torch.int32)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n,S,lengths,window,cap", SHARD_CASES)
+    def test_merged_shards_equal_the_whole_cache(self, dtype, n, S, lengths, window, cap):
+        q, kc, vc, lens = self.inputs(dtype, S, lengths)
+        kw = dict(scale=0.25, window=window, softcap=cap)
+        whole = ref.decode_attention_ref(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lens,
+                                         **kw)
+        outs, lses = [], []
+        for lo, hi in shards_of(S, n):
+            o, lse = ref.decode_attention_ref(
+                q[:, 0], kc[:, lo:hi].transpose(1, 2), vc[:, lo:hi].transpose(1, 2), lens,
+                key_offset=lo, return_lse=True, **kw)
+            assert lse.dtype == torch.float32 and lse.shape == (len(lengths), 8)
+            first = np.maximum(0, np.array(lengths) - window) if window else 0
+            empty = torch.from_numpy((np.array(lengths) <= lo) | (first >= hi))
+            assert torch.isneginf(lse[empty]).all() and torch.isfinite(lse[~empty]).all()
+            assert (o[empty] == 0).all()
+            outs.append(o)
+            lses.append(lse)
+        merged = ops.merge_decode_partials(outs, lses)
+        assert merged.dtype == q.dtype and torch.isfinite(merged.float()).all()
+        # bf16: each shard's output rounds to bf16 before the merge, one more
+        # rounding than the whole call's: within TOL.
+        assert_close(merged, whole.float().numpy(), dtype)
+
+    @pytest.mark.parametrize("n,S,lengths,window,cap", SHARD_CASES)
+    def test_through_ops_and_a_row_offset(self, n, S, lengths, window, cap):
+        """``ops.decode_attention`` in the model's layout, its offset a (B,)
+        tensor; its log-sum-exp is that of the shard's logits."""
+        q, kc, vc, lens = self.inputs("float32", S, lengths, seed=10)
+        kw = dict(scale=0.25, window=window, softcap=cap)
+        whole = ops.decode_attention(q, kc, vc, lens, **kw)
+        parts = [ops.decode_attention(q, kc[:, lo:hi], vc[:, lo:hi], lens, return_lse=True,
+                                      key_offset=torch.full((len(lengths),), lo), **kw)
+                 for lo, hi in shards_of(S, n)]
+        assert all(o.shape == q.shape for o, _ in parts)
+        merged = ops.merge_decode_partials([o for o, _ in parts], [lse for _, lse in parts])
+        assert_close(merged, whole.numpy(), "float32")
+        # The whole cache's log-sum-exp from its logits, the shards' combined.
+        s = torch.einsum("bkrd,bksd->bkrs", q[:, 0].reshape(len(lengths), 2, 4, 16),
+                         kc.transpose(1, 2)) * 0.25
+        if cap:
+            s = cap * torch.tanh(s / cap)
+        kp = torch.arange(S)
+        ok = kp[None] < lens[:, None]
+        if window:
+            ok &= kp[None] >= lens[:, None] - window
+        want = torch.logsumexp(torch.where(ok[:, None, None], s, -torch.inf), -1)
+        got = torch.logsumexp(torch.stack([lse for _, lse in parts]), 0)
+        np.testing.assert_allclose(got.numpy(), want.reshape(got.shape).numpy(), rtol=1e-5)
+
+    def test_without_the_new_operands_as_before(self):
+        """With neither operand a row with no valid key still gets the mean
+        of V, as the JAX reference gives it."""
+        q, kc, vc, _ = self.inputs("float32", 8, [1])
+        out = ref.decode_attention_ref(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2),
+                                       torch.tensor([0]), scale=0.25)
+        np.testing.assert_allclose(out.numpy(), vc.mean(1).repeat_interleave(4, 1).numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("n,S,lengths,window,cap", SHARD_CASES[:4])
+    def test_model_plain_path_on_shards(self, n, S, lengths, window, cap):
+        """The model's plain ``attention_decode`` (JAX's rounding) on shards,
+        merged, equals its whole-cache call."""
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models.layers import attention_decode
+
+        cfg = get_smoke_config("gemma2_2b").replace(
+            dtype="float32", n_heads=8, n_kv_heads=2, head_dim=16, sliding_window=window,
+            attn_logit_softcap=cap)
+        q, kc, vc, lens = self.inputs("float32", S, lengths, seed=11)
+        whole = attention_decode(q, kc, vc, lens, cfg=cfg, is_local=True)
+        parts = [attention_decode(q, kc[:, lo:hi], vc[:, lo:hi], lens, cfg=cfg, is_local=True,
+                                  key_offset=lo, return_lse=True) for lo, hi in shards_of(S, n)]
+        merged = ops.merge_decode_partials([o for o, _ in parts], [lse for _, lse in parts])
+        np.testing.assert_allclose(merged.numpy(), whole.numpy(), rtol=1e-5, atol=1e-6)
+
+
 class TestDecodePlan:
     """The split plan of the decode kernel (pure Python)."""
 
@@ -218,6 +330,22 @@ class TestDecodePlan:
         assert got == dec.plan(4, 8, 4, 545, 160, None, h100_resident)
         assert asked and all(a[:3] == (1, 160, 4) for a in asked)
         assert {a[3] for a in asked} == set(range(got.cluster, 17))
+
+    @pytest.mark.parametrize("S,shards,window", [(2048, 16, None), (2048, 16, 4096),
+                                                 (300, 4, 100), (77, 7, None)])
+    def test_every_key_of_a_shard_in_one_split(self, S, shards, window):
+        """A shard of ``S`` entries (global keys [offset, offset + S)): its
+        blocks read each of the row's keys that fall in it once, for every
+        global length and offset of the cache's shards."""
+        p = dec.plan(8, 8, 4, S, 160, window, h100_resident)
+        for offset in range(0, shards * S, S):
+            for length in range(1, shards * S + 1, 7):
+                first = max(0, length - window) if window else 0
+                splits = [dec.split_keys(p, length, window, rank, offset=offset, S=S)
+                          for rank in range(p.cluster)]
+                want = range(max(0, first - offset), max(0, min(S, length - offset)))
+                got = sorted(k for s in splits for k in s)
+                assert got == list(want), (offset, length)
 
     def test_largest_cluster_the_card_holds(self):
         """Clusters of more than six blocks that do not all fit at once

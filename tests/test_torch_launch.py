@@ -15,9 +15,10 @@
   same inputs, the hardware constants set equal on both sides; by 8-GPU
   node, a group inside one node is charged to NVLink and one across two to
   InfiniBand.
-* A train cell on 256 devices: the step run on the fake world gives one
-  device's FLOPs and bytes and a numeric collective term (a serving cell's
-  stays ``null``, "not measured", naming ROADMAP item 11e).
+* A cell on 256 devices, train or serving: the step run on the fake world
+  gives one device's FLOPs and bytes and a numeric collective term; a
+  decode cell whose caches split their sequence (stablelm-12b's
+  decode_32k at 16 x 16) charges the merge of the ranks' partials.
 * ``read_profile`` on a CPU profile of a smoke decode step and on a
   synthetic trace with known kernels, launches and overlaps.
 * ``make_production_mesh`` builds only over a world of its size.
@@ -189,20 +190,55 @@ def test_run_cell_writes_artifacts(tmp_path):
     one, many = arts["1"], arts["16x16"]
     for art in (one, many):
         assert art["step_flops"] > 0 and art["step_bytes"] > 0
-        assert art["roofline"]["dominant"] in ("compute_s", "memory_s")
         assert 0 < art["roofline"]["roofline_fraction"] <= 1.0
         assert art["model_flops"] == 2 * art["active_params"] * 1
-        assert art["useful_flops_ratio"] == art["model_flops"] / art["step_flops"]
         assert (tmp_path / f"mamba2_2p7b__long_500k__{art['mesh']}.json").exists()
+    assert one["roofline"]["dominant"] in ("compute_s", "memory_s")
+    assert one["useful_flops_ratio"] == one["model_flops"] / one["step_flops"]
+    # On the mesh the counts are one device's: the useful share is of all
+    # 256 devices' FLOPs.
+    assert many["roofline"]["dominant"] in ("compute_s", "memory_s", "collective_s")
+    assert many["useful_flops_ratio"] == many["model_flops"] / (256 * many["step_flops"])
     assert one["n_devices"] == 1 and one["collective"]["n"] == 0
-    assert many["n_devices"] == 256 and many["collective"] is None
-    assert "not measured" in many["collective_note"] and "11e" in many["collective_note"]
+    # The decode step runs on the fake world of 256: its collectives (the
+    # weights gathered at use, the gated norm's all-reduce) by 8-GPU node.
+    assert many["n_devices"] == 256 and many["collective"]["n"] > 0
+    assert many["collective"]["dcn"] + many["collective"]["ici"] > 0
+    assert many["count_scope"] == "per device" and many["collectives"]
+    assert "collective_note" not in many
+    # The term charges the weights' whole gathers at use, and says so.
+    assert "whole-weight all-gathers" in many["collective_basis"]
+    assert "collective_basis" not in one
     assert many["bytes_per_device"]["total"] < one["bytes_per_device"]["total"]
     assert one["fits_hbm80g"] == (one["bytes_per_device"]["total"] < mesh.HBM_BYTES)
-    assert "N=not measured" in roofline.summarize_artifact(many)
+    assert "N=not measured" not in roofline.summarize_artifact(many)
     skipped = dryrun.run_cell("stablelm_12b", "long_500k", meshes=["1"], out_dir=str(tmp_path))
     assert "sub-quadratic" in skipped["1"]["skipped"]
     assert "SKIP" in roofline.summarize_artifact(skipped["1"])
+
+
+def test_decode_cell_charges_the_merge_of_a_sequence_split_cache():
+    """stablelm-12b's decode_32k at 16 x 16: its 8 KV heads do not divide
+    the 16-way 'model' axis, so its caches split their sequence and each
+    layer's attention merges the ranks' partials over 'model': an
+    all-reduce of the max log-sum-exp (B/16 x H f32) and one of the
+    rescaled outputs beside their weights (B/16 x H x (hd + 1) f32), once
+    a layer, among the 16 ranks of rank 0's 'model' group."""
+    cfg = dryrun.production_config("stablelm_12b", "decode_32k")
+    seq, batch, _ = SHAPES["decode_32k"]
+    with dryrun.fake_world(256):
+        dmesh = dryrun.make_mesh("16x16")
+        step = dryrun.mesh_serving_count(
+            cfg, dmesh, "decode", {"tokens": torch.empty((batch, 1), dtype=torch.int32,
+                                                         device="meta")}, seq)
+    b, H, hd = batch // 16, cfg.n_heads, cfg.head_dim
+    model_group = [list(range(16))]
+    merge = {(c["result_bytes"], c["count"]) for c in step.collectives
+             if c["op"] == "all-reduce" and c["explicit_groups"] == model_group}
+    assert {(b * H * 4, cfg.n_layers), (b * H * (hd + 1) * 4, cfg.n_layers)} <= merge, merge
+    traffic = roofline.collective_traffic(step.collectives, n_devices=256,
+                                          pod_size=mesh.NODE_SIZE)
+    assert traffic["by_op"]["all-reduce"] > 0
 
 
 def test_dryrun_all_writes_each_cell_and_mesh(tmp_path, monkeypatch, capsys):

@@ -80,6 +80,8 @@ def prefill_launch(lib, q, k, v, out, scale):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # The first version's entry point: an f32 scratch `part` and (nsplit, chunk).
 SPLIT_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 10 + [_F, _I, _F, _P]
+# The cluster versions' whole-cache entry before ``repro_flash_decode_shard``.
+CLUSTER_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_L] * 10 + [_F, _I, _F, _P]
 
 
 def split_plan(B, K, S, sm_count):
@@ -104,8 +106,10 @@ class DecodeVersion:
 
         self.lib = lib
         self.split = "float* part" in (csrc / "decode_attention.cu").read_text()
-        if self.split:
-            lib.repro_flash_decode.argtypes = SPLIT_SIGNATURE
+        self.shard = hasattr(lib, "repro_flash_decode_shard")
+        if not self.shard:
+            lib.repro_flash_decode.argtypes = SPLIT_SIGNATURE if self.split else CLUSTER_SIGNATURE
+            lib.repro_flash_decode.restype = ctypes.c_int
         self.sm = torch.cuda.get_device_properties(0).multi_processor_count
         self.query = hasattr(lib, "repro_flash_decode_clusters")
         self.part = None
@@ -135,9 +139,14 @@ class DecodeVersion:
                 nsplit, chunk, *strides, float(scale), 0, 0.0, stream)
         else:
             p = plan(B, K, H // K, S, hd, None, lambda c, h: self.resident(hd, c, h))
-            err = self.lib.repro_flash_decode(
-                1, hd, *ptrs, B, H, K, S, p.cluster, p.chunk, p.tile, p.heads, *strides,
-                float(scale), 0, 0.0, stream)
+            geometry = [B, H, K, S, p.cluster, p.chunk, p.tile, p.heads]
+            if self.shard:  # the whole cache: no key offset, no log-sum-exp
+                err = self.lib.repro_flash_decode_shard(
+                    1, hd, *ptrs, None, 0, None, *geometry, *strides, 0, 0, float(scale), 0,
+                    0.0, stream)
+            else:
+                err = self.lib.repro_flash_decode(1, hd, *ptrs, *geometry, *strides,
+                                                  float(scale), 0, 0.0, stream)
         _build.check(err, "flash_decode")
 
 
