@@ -12,9 +12,13 @@ Phases, each of which fails the run on any fault:
    shared memory; fails if the bf16 SSD kernel spills at the served
    models' sizes.
 2. Kernels: holds each hand-written kernel against its plain PyTorch version
-   on the card at the main paths' shapes (and at a window + softcap case, a
-   ragged-S case, other head sizes, prompts shorter than an SSD chunk and
-   the smoke configs' SSD sizes), and times both, the bound and one library
+   on the card at the main paths' shapes (a windowed model's local and
+   global calls apart; the paths served after stablelm's within 4 bf16
+   steps at logits that reach the softcap, each window and softcap with a
+   planted control, the kernel with it off, that must miss that gate; and
+   at a small window + softcap case, a ragged-S
+   case, other head sizes, prompts shorter than an SSD chunk and the smoke
+   configs' SSD sizes), and times both, the bound and one library
    call where there is one (decode cold, each call on the next of enough
    copies of the cache to exceed twice the L2, and warm); holds ``ops.ssd`` (the SSD kernel plus its
    recurrence glue) against the model's plain ``ssd_chunked``.  The
@@ -25,14 +29,18 @@ Phases, each of which fails the run on any fault:
    shards).
 3. Slices: serves stablelm-12b, mamba2-2.7b, zamba2-1.2b,
    seamless-m4t-large-v2 (encoder-decoder), grok-1 and llama4-scout (MoE,
-   at a stated cut of their depth) at their published widths (random
-   weights from a seed, bf16) through ``Engine.generate``, each with every
-   launch count set to 0 just before and read just after, checks that
-   every attention and SSD call of prefill and decode launched its kernel
-   (and at which shapes), and holds the logits against a run of the same
-   weights on the plain versions, teacher-forced on the same tokens (for
-   MoE also the share of routing choices on which the two runs differ);
-   then repeats that comparison with the same draws in f32.
+   at a stated cut of their depth), gemma2-2b and gemma3-4b (sliding
+   windows, prompts past them; gemma2's softcaps; head size 256; gemma3's
+   QK-norm), starcoder2-15b and chameleon-34b (QK-norm) at their published
+   widths (random weights from a seed, bf16) through ``Engine.generate``,
+   each with every launch count set to 0 just before and read just after,
+   checks that every attention and SSD call of prefill and decode launched
+   its kernel (and at which shapes, windows and softcaps), and holds the
+   logits against a run of the same weights on the plain versions,
+   teacher-forced on the same tokens (for MoE also the share of routing
+   choices on which the two runs differ); then repeats that comparison with
+   the same draws in f32.  Logs each slice's peak memory beside its
+   reckoning and its wall seconds.
 4. Rates: prefill ms, decode ms per step and generated tokens per second,
    and a profile of each model's prefill and decode, read by
    ``launch.trace_analysis.read_profile``: the device's busy share, the
@@ -210,6 +218,28 @@ def close(out, want, dtype, tol=None, step=0.0) -> float:
     return diff.max().item()
 
 
+def held_in_steps(kernel, want, steps, kw, what: str) -> dict:
+    """A check at a served dense path (``dense_cases``): ``kernel()``
+    within ``steps`` bf16 steps of the largest |want| (``_within_steps``),
+    and planted controls: the kernel with its window, and with its
+    softcap, turned off (each where ``kw`` sets one) must miss that gate,
+    or the gate could not see the feature.  Returns the row's fields, each
+    control as how many times the gate its error is."""
+    err = _within_steps(kernel(), want, None, what, steps)
+    gate = steps * BF16_STEP * want.float().abs().max().item()
+    controls = {}
+    for name in ("window", "softcap"):
+        if kw[name] is None:
+            continue
+        miss = (kernel(**{name: None}).float() - want.float()).abs().max().item() / gate
+        if not miss > 1:
+            raise AssertionError(f"{what}: the kernel with no {name} is within the gate "
+                                 f"({miss:.3f} of it), so the gate cannot see the {name}")
+        controls[f"{name} off"] = miss
+    return dict(max_abs_err=err, tol=f"{steps} steps of max |want|", gate=gate,
+                controls_miss_gate_by=controls)
+
+
 def bound_ms(bytes_moved: float, flops: float, dtype) -> tuple:
     t_bytes = bytes_moved / HBM_BW * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
@@ -220,7 +250,10 @@ def bound_ms(bytes_moved: float, flops: float, dtype) -> tuple:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def prefill_case(gen, B, Sq, H, K, hd, dtype, *, Sk=None, causal=True, window=None,
-                 softcap=None, measure=False):
+                 softcap=None, measure=False, q_std=1.0, steps=None):
+    """One ``flash_prefill`` check: held at TOL, or with ``steps`` within
+    that many bf16 steps of the largest |want| and with planted controls
+    (``held_in_steps``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -229,22 +262,27 @@ def prefill_case(gen, B, Sq, H, K, hd, dtype, *, Sk=None, causal=True, window=No
     dev = "cuda"
     q, k, v = (torch.randn(*shape, hd, generator=gen, device=dev).to(dtype)
                for shape in [(B, Sq, H), (B, Sk, K), (B, Sk, K)])
+    q = (q_std * q.float()).to(dtype)
     scale = hd ** -0.5
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
 
-    def kernel():
-        return ops.flash_attention(q, k, v, **kw)
+    def kernel(**off):
+        return ops.flash_attention(q, k, v, **{**kw, **off})
 
     def plain():
         return ref.flash_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw
         ).transpose(1, 2)
 
-    err = close(kernel(), plain(), dtype)
-    torch.cuda.synchronize()
     row = dict(shape=f"B={B} Sq={Sq} Sk={Sk} H={H} K={K} hd={hd}", dtype=dtype_name(dtype),
-               causal=causal, window=window, softcap=softcap, max_abs_err=err,
-               tol=TOL[dtype_name(dtype)], key=("flash_prefill", (B, Sq, Sk, H, K, hd, causal)))
+               causal=causal, window=window, softcap=softcap,
+               key=("flash_prefill", ops.prefill_shape(q, k, causal, window, softcap)))
+    if steps is None:
+        row.update(max_abs_err=close(kernel(), plain(), dtype), tol=TOL[dtype_name(dtype)])
+    else:
+        row.update(held_in_steps(kernel, plain(), steps, kw, f"flash_prefill {row['shape']}"),
+                   q_std=q_std)
+    torch.cuda.synchronize()
     if not measure:
         return row
     qp = torch.arange(Sq, device=dev)[:, None]
@@ -258,13 +296,16 @@ def prefill_case(gen, B, Sq, H, K, hd, dtype, *, Sk=None, causal=True, window=No
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b_ms, b_by = bound_ms(nbytes, 4 * hd * pairs, dtype)
 
+    # The library's call: causal or not, or with a window the boolean mask
+    # of the keys each row sees; no PyTorch call takes a softcap.
     def library():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, scale=scale, enable_gqa=True,
+            is_causal=causal and window is None, scale=scale, enable_gqa=True,
+            attn_mask=ok if window is not None else None,
         )
 
-    lib_ms = time_ms(library) if window is None and softcap is None else None
+    lib_ms = time_ms(library) if softcap is None else None
     row.update(ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
                library_ms=lib_ms)
     return row
@@ -279,7 +320,8 @@ def cold_copies(nbytes: int) -> int:
 
 
 def decode_case(gen, B, S, H, K, hd, dtype, lengths, *, window=None, softcap=None,
-                measure=False):
+                measure=False, q_std=1.0, steps=None):
+    """One ``flash_decode`` check, held as ``prefill_case`` holds its own."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -287,25 +329,30 @@ def decode_case(gen, B, S, H, K, hd, dtype, lengths, *, window=None, softcap=Non
 
     dev = "cuda"
     q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
+    q = (q_std * q.float()).to(dtype)
     kc = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
     vc = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     scale = hd ** -0.5
     kw = dict(scale=scale, window=window, softcap=softcap)
 
-    def kernel(kc=kc, vc=vc):
-        return ops.decode_attention(q, kc, vc, lens, **kw)
+    def kernel(kc=kc, vc=vc, **off):
+        return ops.decode_attention(q, kc, vc, lens, **{**kw, **off})
 
     def plain(kc=kc, vc=vc):
         return ref.decode_attention_ref(
             q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lens, **kw
         )[:, None]
 
-    err = close(kernel(), plain(), dtype)
-    torch.cuda.synchronize()
     row = dict(shape=f"B={B} S={S} H={H} K={K} hd={hd} lengths={list(lengths)}",
-               dtype=dtype_name(dtype), window=window, softcap=softcap, max_abs_err=err,
-               tol=TOL[dtype_name(dtype)], key=("flash_decode", (B, S, H, K, hd)))
+               dtype=dtype_name(dtype), window=window, softcap=softcap,
+               key=("flash_decode", ops.decode_shape(q, kc, window, softcap)))
+    if steps is None:
+        row.update(max_abs_err=close(kernel(), plain(), dtype), tol=TOL[dtype_name(dtype)])
+    else:
+        row.update(held_in_steps(kernel, plain(), steps, kw, f"flash_decode {row['shape']}"),
+                   q_std=q_std)
+    torch.cuda.synchronize()
     if not measure:
         return row
     valid = sum(min(n, window) if window else n for n in lengths)
@@ -451,20 +498,78 @@ def ssd_phase():
     return {("ssd_intra_chunk", arch): [row] for arch, row in main.items()}
 
 
+# The dense (and VLM) model whose paths kernel_phase checks at its own
+# defaults; dense_cases checks every other dense and VLM slice's.
+KERNEL_PHASE_ARCH = "stablelm_12b"
+# dense_cases' rows.  q drawn at std DENSE_Q_STD, so that the logits (std
+# DENSE_Q_STD at scale hd^-0.5 over unit keys) reach gemma2's softcap of 50
+# and the softmax weighs a few keys, not thousands alike: a key the window
+# should drop, or a logit the softcap should bend, then moves the output
+# by a good part of a value.  The output within DENSE_STEPS bf16 steps
+# (BF16_STEP) of the largest |want|: the plain version sums in f32 and
+# rounds once (half a step), the kernel rounds P to bf16 before P V (half
+# a step of the values it weighs) and its output (half a step): 1.5, 4
+# with room, as phase 11 (c).  Not TOL, whose 0.03 (1 + |want|) at unit-std
+# logits over thousands of keys is as large as the values: by reckoning, a
+# kernel that ignored the window (moving the outputs ~0.01) or the softcap
+# (~1e-4) would pass it.  Each windowed or softcapped row also holds
+# planted controls (held_in_steps).
+DENSE_Q_STD = 20.0
+DENSE_STEPS = 4
+
+
+def dense_archs():
+    """The dense and VLM slices after ``KERNEL_PHASE_ARCH``, in ``SLICES``'
+    order: the paths ``dense_cases`` checks."""
+    from repro_torch.configs import get_config
+
+    return tuple(arch for arch in SLICES if arch != KERNEL_PHASE_ARCH
+                 and get_config(arch).family in ("dense", "vlm"))
+
+
+def dense_cases(gen, B, gen_steps):
+    """Phase 2's bf16 rows at the paths of ``dense_archs()``, at their own
+    prompts and caches (``SLICES``): gemma2 (hd 256, softcap 50) and gemma3
+    (hd 256, qk_norm before the kernel) each at their local layers' window
+    and at their global layers' none; starcoder2 (q_per_kv 12) and
+    chameleon (q_per_kv 8) at hd 128.  Decode lengths as stablelm's: the
+    full cache, one past the prompt, and two between."""
+    import torch
+    from repro_torch.configs import get_config
+
+    main = {}
+    for arch in dense_archs():
+        c = get_config(arch)
+        P = SLICES[arch]["prompt"]
+        cache = P + gen_steps + 1
+        shape = (c.n_heads, c.n_kv_heads, c.head_dim, torch.bfloat16)
+        windows = (c.sliding_window, None) if c.local_count else (None,)
+        kw = dict(softcap=c.attn_logit_softcap, measure=True, q_std=DENSE_Q_STD,
+                  steps=DENSE_STEPS)
+        main[("flash_prefill", arch)] = [prefill_case(gen, B, P, *shape, window=w, **kw)
+                                         for w in windows]
+        main[("flash_decode", arch)] = [
+            decode_case(gen, B, cache, *shape, [cache, P + 1, P + gen_steps // 2, P + 8],
+                        window=w, **kw) for w in windows]
+    return main
+
+
 def kernel_phase(B=4, S=512, H=32, K=8, hd=160, gen_steps=32):
     """Checks both attention kernels; returns the bf16 rows of the paths'
     shapes, a list per (kernel, path): seamless runs the prefill kernel at
-    three shapes (its encoder, its decoder's self- and cross-attention)."""
+    three shapes (its encoder, its decoder's self- and cross-attention),
+    gemma2 and gemma3 each kernel at two (their windowed local layers and
+    their global ones)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     S_cache = S + gen_steps + 1
     lengths = [S_cache, S + 1, S + gen_steps // 2, S + 8]
-    main = {("flash_prefill", "stablelm_12b"): [prefill_case(gen, B, S, H, K, hd, bf16,
-                                                             measure=True)],
-            ("flash_decode", "stablelm_12b"): [decode_case(gen, B, S_cache, H, K, hd, bf16,
-                                                           lengths, measure=True)]}
+    main = {("flash_prefill", KERNEL_PHASE_ARCH): [prefill_case(gen, B, S, H, K, hd, bf16,
+                                                                  measure=True)],
+            ("flash_decode", KERNEL_PHASE_ARCH): [decode_case(gen, B, S_cache, H, K, hd, bf16,
+                                                                lengths, measure=True)]}
     extra = [
         prefill_case(gen, B, S, H, K, hd, f32, measure=True),
         decode_case(gen, B, S_cache, H, K, hd, f32, lengths, measure=True),
@@ -506,6 +611,7 @@ def kernel_phase(B=4, S=512, H=32, K=8, hd=160, gen_steps=32):
                                   ("llama4_scout_17b_a16e", 40, 8, 128)):
         main[("flash_decode", arch)] = [decode_case(gen, B, S_cache, heads, kv, hd_x, bf16,
                                                     lengths, measure=True)]
+    main.update(dense_cases(gen, B, gen_steps))
     for hd_x in (16, 32, 64, 128, 256):
         for dtype in (f32, bf16):
             extra.append(prefill_case(gen, 2, 200, 4, 2, hd_x, dtype))
@@ -609,7 +715,76 @@ SLICES = {
                     d_ff=8192, mlp_gated=True, activation="silu", vocab=202048, n_experts=16,
                     top_k=1, n_shared_experts=1, capacity_factor=1.25, moe_group_size=4096,
                     rope_theta=500_000.0, dtype="bfloat16")),
+    # The windowed models: a window cuts only where a row sees more keys
+    # than it, so each prompt is the window plus a margin (gemma2's 4608 is
+    # 4096 + 512, within its published 8192 context; gemma3's 2048 is 1024 +
+    # 1024): the last 512 (1024) rows of every local prefill layer, and every
+    # decode step of a local layer, lose keys to the window.  One
+    # flash_prefill a layer and one flash_decode a layer a step, local and
+    # global alike (gemma2 13 local of 26, even layers; gemma3 29 of 34,
+    # where i % 6 < 5).
+    "gemma2_2b": dict(
+        prompt=4608, launches=(26, 26, 0),
+        widths=dict(n_layers=26, d_model=2304, n_heads=8, n_kv_heads=4, head_dim=256,
+                    d_ff=9216, vocab=256000, sliding_window=4096, local_period=2,
+                    local_count=1, attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                    post_norm=True, emb_scale_by_sqrt_dim=True, dtype="bfloat16")),
+    "gemma3_4b": dict(
+        prompt=2048, launches=(34, 34, 0),
+        widths=dict(n_layers=34, d_model=2560, n_heads=8, n_kv_heads=4, head_dim=256,
+                    d_ff=10240, vocab=262144, sliding_window=1024, local_period=6,
+                    local_count=5, qk_norm=True, post_norm=True, emb_scale_by_sqrt_dim=True,
+                    rope_theta=1_000_000.0, dtype="bfloat16")),
+    # 15.65 B params (31.3 GB) served whole; in f32 a layer is 0.384 B params
+    # (1.54 GB): 20 of 40 layers and the embedding 31.9 GB, 34.3 GB with
+    # init's draw (all 40 ~63 GB; the bf16 gate is LOGIT_GATES', so no f32
+    # copy sits beside the bf16 model).
+    "starcoder2_15b": dict(
+        prompt=512, launches=(40, 40, 0), f32_cut=dict(n_layers=20), f32_launches=(20, 20, 0),
+        widths=dict(n_layers=40, d_model=6144, n_heads=48, n_kv_heads=4, head_dim=128,
+                    d_ff=24576, mlp_gated=False, activation="gelu", vocab=49152,
+                    rope_theta=100_000.0, dtype="bfloat16")),
+    # 33.76 B params (67.5 GB) served whole, reckoned before its first run:
+    # the weights, shared by the bf16 gate's plain model (assign=True), and
+    # during init the embedding drawn in f32 and scaled (2 x 2.15 GB) peak at
+    # 71.8 GB (reckoned_peak_bytes, which reads grok's and scout's measured
+    # peaks within 0.04 GB); beside them the Engine's and one teacher-forced
+    # run's KV caches (2 x 0.43 GB), a prefill's activations (< 1 GB: the
+    # plain attention's f32 logits 0.27 GB) and the CUDA context (~0.6 GB):
+    # ~73 GB at most, under the card's 85.0 GB (79.2 GiB).  In f32 a layer
+    # is 0.692 B params (2.77 GB): 12 of 48 layers and the embedding 35.4
+    # GB, 39.7 GB with init's draw.
+    "chameleon_34b": dict(
+        prompt=512, launches=(48, 48, 0), f32_cut=dict(n_layers=12), f32_launches=(12, 12, 0),
+        widths=dict(n_layers=48, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+                    d_ff=22016, vocab=65536, mlp_gated=True, activation="silu", qk_norm=True,
+                    dtype="bfloat16")),
 }
+# The reckoned peak a slice may reach on the 80 GB card: room beside it for
+# the CUDA context, the KV caches and a prefill's activations.
+PEAK_GB_MAX = 76.0
+
+
+def within_peak(arch, what: str, peak: int) -> None:
+    """Raises if a pass's peak allocation passed ``PEAK_GB_MAX``."""
+    if peak > PEAK_GB_MAX * 1e9:
+        raise AssertionError(f"{arch} {what} pass peak allocated {peak / 1e9:.2f} GB, over "
+                             f"the {PEAK_GB_MAX} GB limit")
+
+
+def reckoned_peak_bytes(arch):
+    """The reckoned peaks of a slice's bf16 and f32 passes: the weights at
+    the pass's depth (``param_count``; the plain model shares them), in the
+    bf16 pass also the full-depth f32 copy where the arch has no
+    ``LOGIT_GATES`` entry (``compare_to_floor``), and in both the embedding
+    drawn in f32 and scaled during init (two f32 tables)."""
+    from repro_torch.configs import get_config
+
+    spec = SLICES[arch]
+    cfg = get_config(arch).replace(**spec.get("cut", {}))
+    draw = 2 * 4 * cfg.vocab * cfg.d_model
+    bf16 = 2 * cfg.param_count() + (0 if arch in LOGIT_GATES else 4 * cfg.param_count())
+    return bf16 + draw, 4 * cfg.replace(**spec.get("f32_cut", {})).param_count() + draw
 
 # The bf16 logit gates against the plain-version run: (max abs, error RMS
 # over the logits' RMS).  The plain path rounds the attention logits and
@@ -630,8 +805,24 @@ SLICES = {
 #   0.25 (logit std 0.02 * sqrt(d_model) ~ 1.4-1.6, as stablelm's).  Held,
 #   since the first reading, on a kernel run pinned to the plain run's
 #   routing (below).
+# - the four models after them (reckoned before their first run), by the
+#   same count of calls, with the logits' std 0.02 * sqrt(d_model) (the
+#   final norm makes each hidden row unit RMS, whatever the gemmas'
+#   embedding scale of sqrt(d_model) and sandwich norms do before it), the
+#   max abs gate twice the ~sqrt(2 ln N) sigma that N = 4 x 33 x vocab
+#   such errors reach, rounded up to 0.05:
+#   - gemma2-2b: 26 calls (13 windowed), sqrt(26) * 2^-8 ~ 2.0%; std 0.96
+#     (its final softcap of 30 shrinks a logit x by ~x^2 / 2700, ~1% at
+#     the largest, ~5.5); 5.9 sigma 0.113: (0.25, 4%).
+#   - gemma3-4b: 34 calls (29 windowed), ~2.3%; std 1.01; 5.9 sigma 0.136:
+#     (0.3, 5%).
+#   - starcoder2-15b: 40 calls, ~2.5%; std 1.57; 5.6 sigma 0.217: (0.45, 5%).
+#   - chameleon-34b: 48 calls, ~2.7%; std 1.81; 5.65 sigma 0.277: (0.6, 6%).
+#   Their f32 pass at LOGIT_ATOL_F32, as every slice's.
 LOGIT_GATES = {"stablelm_12b": (0.25, 5e-2), "seamless_m4t_large_v2": (0.25, 7e-2),
-               "grok_1_314b": (0.25, 5e-2), "llama4_scout_17b_a16e": (0.25, 5e-2)}
+               "grok_1_314b": (0.25, 5e-2), "llama4_scout_17b_a16e": (0.25, 5e-2),
+               "gemma2_2b": (0.25, 4e-2), "gemma3_4b": (0.3, 5e-2),
+               "starcoder2_15b": (0.45, 5e-2), "chameleon_34b": (0.6, 6e-2)}
 # MoE routing is discrete.  Reckoned before the first run: a one-step bf16
 # difference between the runs moves the router's input by ~2^-8, ~0.4% of
 # router logits of std ~1; that flips a top-k choice whose gap to the next
@@ -830,6 +1021,21 @@ def expected_launches(launches, decode_steps):
             "ssd_intra_chunk": ssd}
 
 
+def windowed_launches(cfg, decode_steps):
+    """The launches of a model's windowed (local) layers: one flash_prefill
+    a local layer a prefill and one flash_decode a local layer a step."""
+    local = sum(cfg.local_flags())
+    return {"flash_prefill": local, "flash_decode": local * decode_steps}
+
+
+def launches_by_window(shapes):
+    """Each attention kernel's launches with a window, from
+    ``ops.LAUNCH_SHAPES`` (whose keys end in (window, softcap))."""
+    return {name: sum(n for (kernel, shape), n in shapes.items()
+                      if kernel == name and shape[-2] is not None)
+            for name in ("flash_prefill", "flash_decode")}
+
+
 def make_inputs(cfg, gen, batch, prompt, device="cuda"):
     """Prompt tokens from ``gen``; for the encoder-decoder also the stub
     frame embeddings (batch, enc_len, d_model) in the config's type."""
@@ -862,7 +1068,7 @@ def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
     prompt = spec["prompt"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    t_slice = t0 = time.perf_counter()
     model = get_model(cfg).init(gen, device="cuda")
     torch.cuda.synchronize()
     allocated_after_init = torch.cuda.memory_allocated()
@@ -891,6 +1097,9 @@ def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
     want = expected_launches(spec["launches"], gen_steps)
     if launches != want:
         raise AssertionError(f"{arch} kernel launches {launches}, expected {want}")
+    windowed, want = launches_by_window(shapes), windowed_launches(cfg, gen_steps)
+    if windowed != want:
+        raise AssertionError(f"{arch} windowed launches {windowed}, expected {want}")
 
     # The same weights on the plain versions, teacher-forced on the tokens
     # the kernel run produced.
@@ -936,6 +1145,11 @@ def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
                 decode_state=tree_bytes(windows.pop("decode_state")), max_len=max_len,
                 allocated_after_init=allocated_after_init,
                 peak_allocated=torch.cuda.max_memory_allocated())
+    peak_bf16, peak_f32 = reckoned_peak_bytes(arch)
+    log(f"slice: {arch} bf16 pass peak allocated {live['peak_allocated'] / 1e9:.2f} GB, "
+        f"reckoned {peak_bf16 / 1e9:.2f} GB before activations and caches (limit "
+        f"{PEAK_GB_MAX} GB)")
+    within_peak(arch, "bf16", live["peak_allocated"])
     rates = dict(arch=arch, card=card, prefill_ms=sorted(prefill_ms)[1],
                  decode_ms_per_step=decode_ms, generate_wall_ms=wall * 1e3,
                  tok_per_s=batch * out.steps / wall, batch=batch, prompt=prompt,
@@ -947,6 +1161,7 @@ def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
     # width (at ``f32_cut`` depth where the f32 weights would not fit).
     del model, plain, engine, prefill_step, run
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     cfg32 = cfg.replace(dtype="float32", **spec.get("f32_cut", {}))
     inputs32 = {k: (v.float() if v.is_floating_point() else v) for k, v in inputs.items()}
     model = get_model(cfg32).init(torch.Generator(device="cuda").manual_seed(seed), "cuda")
@@ -965,14 +1180,20 @@ def slice_phase(card, arch, spec, batch=4, gen_steps=32, seed=0):
                              f"expected {want}")
     rates["logits_f32"] = gate_logits(f"{arch} f32 ({cfg32.n_layers} layers)", arch, cfg32,
                                       model, run32, got, run32(plain), atol=LOGIT_ATOL_F32)
+    rates["f32_peak_allocated"], rates["f32_peak_reckoned"] = (
+        torch.cuda.max_memory_allocated(), peak_f32)
+    within_peak(arch, "f32", rates["f32_peak_allocated"])
     del model, plain
     torch.cuda.empty_cache()
+    rates["seconds"] = time.perf_counter() - t_slice
+    log(f"slice: {arch} took {rates['seconds']:.1f} s [{card}] (f32 pass peak allocated "
+        f"{rates['f32_peak_allocated'] / 1e9:.2f} GB, reckoned {peak_f32 / 1e9:.2f} GB)")
     return launches, shapes, rates
 
 
 # The device kernel (its symbol in ``csrc/``) that one call of each wrapper
-# of ``ops`` launches on the served bf16 paths: head sizes 64-160 take the
-# wgmma prefill.
+# of ``ops`` launches on the served bf16 paths: the served head sizes, 64 to
+# 256, take the wgmma prefill (it serves 32-256; hd 16 takes mma.sync).
 DEVICE_KERNELS = {"flash_prefill": "flash_prefill_wgmma_kernel",
                   "flash_decode": "flash_decode_bf16_kernel",
                   "ssd_intra_chunk": "ssd_intra_chunk_bf16_kernel"}
@@ -2727,17 +2948,17 @@ def _serve_on_mesh(label, cfg, model, inputs, max_len, steps, mesh, device, expe
     return row, faults
 
 
-def _within_steps(out, want, dtype, what: str) -> float:
-    """Max abs error; raises unless it is within SHARD_STEPS bf16 rounding
+def _within_steps(out, want, dtype, what: str, steps=SHARD_STEPS) -> float:
+    """Max abs error; raises unless it is within ``steps`` bf16 rounding
     steps of the largest |want|, or if ``out`` is not finite.  (c) runs in
     bf16 on the card; its f32 run on the CPU is held at the same gate."""
     import torch
 
     diff = (out.float() - want.float()).abs().max().item()
-    gate = SHARD_STEPS * BF16_STEP * want.float().abs().max().item()
+    gate = steps * BF16_STEP * want.float().abs().max().item()
     if not (torch.isfinite(out.float()).all() and diff <= gate):
         raise AssertionError(f"{what}: max abs err {diff:.3e} over the gate {gate:.3e} "
-                             f"({SHARD_STEPS} steps of max |want|)")
+                             f"({steps} steps of max |want|)")
     return diff
 
 
@@ -2993,8 +3214,8 @@ def kernel_rows(checked, paths):
                                      f"to {launches[name]}")
             by_shape = {row["key"][1]: row for row in checked.get((name, arch), [])}
             if set(ran) != set(by_shape):
-                raise AssertionError(f"{name} on {arch} ran at {sorted(ran)}, checked at "
-                                     f"{sorted(by_shape)}")
+                raise AssertionError(f"{name} on {arch} ran at {sorted(ran, key=repr)}, "
+                                     f"checked at {sorted(by_shape, key=repr)}")
             for shape, n in ran.items():
                 row = by_shape[shape]
                 entries.append(dict(
@@ -3002,8 +3223,9 @@ def kernel_rows(checked, paths):
                     tol=row["tol"], ms=row["ms"], plain_ms=row["plain_ms"],
                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                     library_ms=row["library_ms"], shape=row["shape"], dtype=row["dtype"],
-                    **{k: row[k] for k in ("causal", "ms_warm", "plain_ms_warm",
-                                           "library_ms_warm", "cold_copies") if k in row}))
+                    **{k: row[k] for k in ("causal", "window", "softcap", "ms_warm",
+                                           "plain_ms_warm", "library_ms_warm", "cold_copies")
+                       if k in row}))
         if not entries:
             raise AssertionError(f"{name} was launched on no path")
         rows.append(dict(name=name, **meta, **entries[0], other_paths=entries[1:]))
@@ -3037,6 +3259,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3046,7 +3269,9 @@ def main() -> int:
     for row in kernel_resources():
         log(f"ptxas {row['family']}:", json.dumps(row))
 
+    t0 = time.perf_counter()
     checked = {**kernel_phase(), **ssd_phase()}
+    log(f"kernels: phase 2 took {time.perf_counter() - t0:.1f} s [{card}]")
     paths = {arch: slice_phase(card, arch, spec) for arch, spec in SLICES.items()}
     kernels = kernel_rows(checked, paths)
     train = train_phase(card)
@@ -3117,6 +3342,7 @@ def main() -> int:
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.3f} ms")
     log(f"mesh serve: phase 11 took {serve['seconds']:.1f} s")
     log("mesh serve:", json.dumps(serve))
+    log(f"run: took {time.perf_counter() - t_run:.1f} s [{card}]")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,8 @@ every head, the kernels here read the model's layout through strides.
 ``LAUNCHES`` counts the kernel launches of each op, so a run can show that
 its path went through the kernels; ``LAUNCH_SHAPES`` counts them by call
 shape, so a path that runs a kernel at several shapes (an encoder, a
-decoder, its cross-attention) shows how often it ran each.
+decoder, its cross-attention; a windowed layer beside a global one) shows
+how often it ran each.
 
 The kernels have no backward (nor have the reference's Pallas kernels): on
 a CUDA tensor each op raises while autograd records, naming the plain path
@@ -30,8 +31,26 @@ from .ssd_scan import ssd_intra_chunk as _ssd_kernel
 
 LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "flash_decode": 0, "ssd_intra_chunk": 0}
 # (kernel, shape) -> launches; the shapes: flash_prefill (B, Sq, Sk, H, K, hd,
-# causal), flash_decode (B, S, H, K, hd), ssd_intra_chunk (B, S, nh, hd, N).
+# causal, window, softcap), flash_decode (B, S, H, K, hd, window, softcap),
+# ssd_intra_chunk (B, S, nh, hd, N); window and softcap are None when off,
+# so a model's windowed (local) and global layers count apart.
 LAUNCH_SHAPES: Counter = Counter()
+
+
+def prefill_shape(q: torch.Tensor, k: torch.Tensor, causal: bool, window: Optional[int],
+                  softcap: Optional[float]) -> tuple:
+    """``flash_prefill``'s shape key in ``LAUNCH_SHAPES`` for q (B, Sq, H, hd)
+    and k (B, Sk, K, hd)."""
+    B, Sq, H, hd = q.shape
+    return (B, Sq, k.shape[1], H, k.shape[2], hd, causal, window, softcap)
+
+
+def decode_shape(q: torch.Tensor, k_cache: torch.Tensor, window: Optional[int],
+                 softcap: Optional[float]) -> tuple:
+    """``flash_decode``'s shape key in ``LAUNCH_SHAPES`` for q (B, 1, H, hd)
+    and a cache (B, S, K, hd)."""
+    B, _, H, hd = q.shape
+    return (B, k_cache.shape[1], H, k_cache.shape[2], hd, window, softcap)
 
 
 def reset_launches() -> None:
@@ -73,8 +92,7 @@ def flash_attention(
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     flash_prefill(q, k, v, out, scale=scale, causal=causal, window=window, softcap=softcap)
     LAUNCHES["flash_prefill"] += 1
-    B, Sq, H, hd = q.shape
-    LAUNCH_SHAPES["flash_prefill", (B, Sq, k.shape[1], H, k.shape[2], hd, causal)] += 1
+    LAUNCH_SHAPES["flash_prefill", prefill_shape(q, k, causal, window, softcap)] += 1
     return out
 
 
@@ -113,7 +131,7 @@ def decode_attention(
         scale=scale, window=window, softcap=softcap, key_offset=key_offset, lse=lse,
     )
     LAUNCHES["flash_decode"] += 1
-    LAUNCH_SHAPES["flash_decode", (B, k_cache.shape[1], H, k_cache.shape[2], hd)] += 1
+    LAUNCH_SHAPES["flash_decode", decode_shape(q, k_cache, window, softcap)] += 1
     return (out[:, None], lse) if return_lse else out[:, None]
 
 

@@ -8,6 +8,14 @@
       --batch 4 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless_m4t_large_v2 \
       --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_2b \
+      --batch 4 --prompt-len 4608 --gen 32    # past its 4096 window
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_4b \
+      --batch 4 --prompt-len 2048 --gen 32    # past its 1024 window
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_15b \
+      --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon_34b \
+      --batch 4 --prompt-len 512 --gen 32     # 67.5 GB of bf16 weights
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok_1_314b --smoke \
       --device cpu    # also llama4_scout_17b_a16e; neither fits one card whole
 

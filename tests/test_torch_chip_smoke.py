@@ -1,10 +1,13 @@
 """The parts of ``chip_smoke.py`` that need no card, on the CPU.
 
 * ``SLICES`` names each served model at its published widths, with a cut
-  of depth only, and launch counts that follow from the depth it serves.
+  of depth only, and launch counts that follow from the depth it serves;
+  a windowed model's prompt and decode steps run past its window; each
+  slice's reckoned peak fits the card.
 * ``kernel_rows`` builds the ``kernels`` line from the checks and the
   launches by shape, and fails where a path ran a kernel at a shape that
-  was not checked, or a shape was checked for a path that never ran it.
+  was not checked, or a shape was checked for a path that never ran it; a
+  windowed layer's calls and a global layer's have distinct shape keys.
 * ``routing_gate`` counts the choices on which two runs route unlike,
   per layer and as first flips, and gates the first layer's share.
 * ``RoutingLog`` records the routing of an MoE model and pins a second
@@ -30,6 +33,7 @@
 
 import copy
 import importlib.util
+import math
 from collections import Counter
 from pathlib import Path
 
@@ -64,7 +68,7 @@ def test_slices_are_published_widths_cut_in_depth_only(arch):
     if cfg.family == "encdec":  # encoder, self- and cross-attention; decode: self only
         assert (prefill, per_step) == (served.n_enc_layers + 2 * served.n_layers,
                                        served.n_layers)
-    elif cfg.family in ("dense", "moe"):
+    elif cfg.family in ("dense", "vlm", "moe"):
         assert (prefill, per_step, ssd) == (served.n_layers, served.n_layers, 0)
     if "f32_cut" in spec:
         n = spec["f32_cut"]["n_layers"]
@@ -72,9 +76,69 @@ def test_slices_are_published_widths_cut_in_depth_only(arch):
 
 
 def test_every_bf16_gate_is_a_slice():
+    """Every gate caps its max abs at 0.25, but the dense paths after
+    stablelm's, whose larger logits (std up to 1.81) the next test holds
+    to their own reckoning."""
     assert set(smoke.LOGIT_GATES) <= set(smoke.SLICES)
     for arch, (atol, rel) in smoke.LOGIT_GATES.items():
-        assert 0 < rel < 0.1 and 0 < atol <= 0.25, arch
+        cap = 0.6 if arch in smoke.dense_archs() else 0.25
+        assert 0 < rel < 0.1 and 0 < atol <= cap, arch
+
+
+def test_dense_archs_are_the_dense_slices_after_stablelm():
+    assert smoke.dense_archs() == ("gemma2_2b", "gemma3_4b", "starcoder2_15b", "chameleon_34b")
+
+
+@pytest.mark.parametrize("arch", smoke.dense_archs())
+def test_dense_gates_follow_their_reckoning(arch):
+    """The reckoning beside LOGIT_GATES: one bf16 step (2^-8) a layer's
+    kernel call, in quadrature; the logits' std 0.02 sqrt(d_model); the
+    gate twice the relative error RMS (rounded up to 1%) and twice the
+    sqrt(2 ln N) sigma of N = 4 x 33 x vocab errors (rounded up to 0.05)."""
+    cfg = get_config(arch)
+    rel = math.sqrt(cfg.n_layers) * 2.0 ** -8
+    sigma = rel * 0.02 * math.sqrt(cfg.d_model) * math.sqrt(2 * math.log(4 * 33 * cfg.vocab))
+    atol, rel_gate = smoke.LOGIT_GATES[arch]
+    assert rel_gate == pytest.approx(math.ceil(200 * rel) / 100)
+    assert atol == pytest.approx(math.ceil(2 * sigma / 0.05) * 0.05)
+
+
+def held_case(blind=None, S=96, window=32, softcap=50.0):
+    """``held_in_steps`` on the CPU, with the plain prefill standing for the
+    kernel (made blind to ``blind``, if given) at dense_cases' q std."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator().manual_seed(0)
+    q = (smoke.DENSE_Q_STD * torch.randn(1, 2, S, 16, generator=gen)).to(torch.bfloat16)
+    k, v = (torch.randn(1, 1, S, 16, generator=gen).to(torch.bfloat16) for _ in range(2))
+    kw = dict(scale=16 ** -0.5, causal=True, window=window, softcap=softcap)
+
+    def kernel(**off):
+        return ref.flash_attention_ref(q, k, v, **{**kw, **off, **({blind: None} if blind
+                                                                    else {})})
+
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    return smoke.held_in_steps(kernel, want, smoke.DENSE_STEPS, kw, "case")
+
+
+def test_held_in_steps_passes_a_faithful_kernel_whose_controls_miss():
+    row = held_case()
+    assert row["max_abs_err"] == 0 and row["tol"] == "4 steps of max |want|"
+    assert set(row["controls_miss_gate_by"]) == {"window off", "softcap off"}
+    assert min(row["controls_miss_gate_by"].values()) > 1
+
+
+@pytest.mark.parametrize("case, match", [
+    (dict(blind="window"), "over the gate"),
+    (dict(blind="softcap"), "over the gate"),
+    (dict(S=24), "cannot see the window"),  # every row within the window
+    (dict(softcap=1e4), "cannot see the softcap"),  # a cap no logit reaches
+])
+def test_held_in_steps_refuses(case, match):
+    """A kernel blind to the window or the softcap misses the gate; a case
+    where the feature changes nothing fails its planted control."""
+    with pytest.raises(AssertionError, match=match):
+        held_case(**case)
 
 
 def checked_row(key, **kw):
@@ -82,16 +146,16 @@ def checked_row(key, **kw):
                 bound_by="bytes", library_ms=0.1, shape=str(key[1]), dtype="bfloat16", **kw)
 
 
-ENC = (4, 4096, 4096, 16, 16, 64, False)
-SELF = (4, 512, 512, 16, 16, 64, True)
-CROSS = (4, 512, 4096, 16, 16, 64, False)
-DEC = (4, 545, 16, 16, 64)
+ENC = (4, 4096, 4096, 16, 16, 64, False, None, None)
+SELF = (4, 512, 512, 16, 16, 64, True, None, None)
+CROSS = (4, 512, 4096, 16, 16, 64, False, None, None)
+DEC = (4, 545, 16, 16, 64, None, None)
 
 
 def seamless(shapes=None):
     """``checked`` and ``paths`` as phases 2 and 3 give them for one
     encoder-decoder path."""
-    checked = {("flash_prefill", "seamless"): [checked_row(("flash_prefill", s), causal=s[-1])
+    checked = {("flash_prefill", "seamless"): [checked_row(("flash_prefill", s), causal=s[6])
                                                for s in (ENC, SELF, CROSS)],
                ("flash_decode", "seamless"): [checked_row(("flash_decode", DEC))],
                ("ssd_intra_chunk", "ssm"): [checked_row(("ssd_intra_chunk", (4, 1024, 80,
@@ -122,7 +186,7 @@ def test_kernel_rows_one_entry_per_path_and_shape():
 def test_kernel_rows_fail_on_an_unchecked_shape():
     checked, paths = seamless({("flash_prefill", ENC): 24, ("flash_prefill", SELF): 24,
                                ("flash_prefill", CROSS): 24, ("flash_decode", DEC): 767,
-                               ("flash_decode", (4, 546, 16, 16, 64)): 1})
+                               ("flash_decode", (4, 546, 16, 16, 64, None, None)): 1})
     with pytest.raises(AssertionError, match="ran at"):
         smoke.kernel_rows(checked, paths)
 
@@ -140,6 +204,148 @@ def test_kernel_rows_fail_when_counts_disagree():
     paths["seamless"] = (dict(launches, flash_decode=769), shapes, rates)
     with pytest.raises(AssertionError, match="do not sum"):
         smoke.kernel_rows(checked, paths)
+
+
+WINDOWED = [a for a in smoke.SLICES if get_config(a).local_count and get_config(a).sliding_window]
+
+
+def test_the_windowed_slices():
+    assert WINDOWED == ["gemma2_2b", "gemma3_4b"]
+
+
+@pytest.mark.parametrize("arch", WINDOWED)
+def test_windowed_prompt_and_decode_steps_exceed_the_window(arch):
+    """The window cuts on the card: the prompt's last rows, and every decode
+    step (lengths prompt + 1 to prompt + 32), see more keys than it."""
+    cfg, spec = get_config(arch), smoke.SLICES[arch]
+    assert spec["prompt"] > cfg.sliding_window
+    assert spec["prompt"] + 1 > cfg.sliding_window  # the first decode step's length
+    assert {"gemma2_2b": 512, "gemma3_4b": 1024}[arch] == spec["prompt"] - cfg.sliding_window
+    local = sum(cfg.local_flags())
+    assert (local, cfg.n_layers - local) == {"gemma2_2b": (13, 13), "gemma3_4b": (29, 5)}[arch]
+
+
+@pytest.mark.parametrize("arch", list(smoke.SLICES))
+def test_reckoned_peak_fits_the_card(arch):
+    """The bf16 pass (weights at ``cut``, plus the full-depth f32 copy
+    where the arch has no bf16 gate) and the f32 pass (at ``f32_cut``), each
+    with init's f32 draw of the embedding, under PEAK_GB_MAX of the 80 GB."""
+    spec = smoke.SLICES[arch]
+    bf16, f32 = smoke.reckoned_peak_bytes(arch)
+    cfg = get_config(arch).replace(**spec.get("cut", {}))
+    draw = 8 * cfg.vocab * cfg.d_model
+    copy = 0 if arch in smoke.LOGIT_GATES else 4 * cfg.param_count()
+    assert bf16 == 2 * cfg.param_count() + copy + draw
+    assert f32 == 4 * cfg.replace(**spec.get("f32_cut", {})).param_count() + draw
+    assert max(bf16, f32) <= smoke.PEAK_GB_MAX * 1e9 < 80e9
+
+
+def test_reckoned_peak_counts_the_live_model():
+    """The reckoning's weights are the live model's bytes, less the norm
+    scales that ``param_count`` leaves out, at a narrow chameleon."""
+    cfg = get_config("chameleon_34b").replace(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                                              head_dim=32, d_ff=256, vocab=512)
+    model = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    norms = sum(p.numel() for n, p in model.named_parameters() if "norm" in n or "ln" in n)
+    assert sum(p.numel() for p in model.parameters()) - norms == cfg.param_count()
+
+
+GEMMA2_LOCAL = (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0)
+GEMMA2_GLOBAL = (4, 4608, 4608, 8, 4, 256, True, None, 50.0)
+GEMMA2_DEC_LOCAL = (4, 4641, 8, 4, 256, 4096, 50.0)
+GEMMA2_DEC_GLOBAL = (4, 4641, 8, 4, 256, None, 50.0)
+
+
+@pytest.mark.parametrize("arch", WINDOWED)
+def test_launch_keys_tell_windowed_from_global_calls(arch):
+    """The keys ``ops`` counts a local and a global layer's calls under, as
+    the layers pass the window and softcap, differ; phase 2's rows take
+    the same keys (``prefill_case`` and ``decode_case`` call the same
+    functions)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import _kernel_window
+
+    cfg = get_config(arch)
+    P = smoke.SLICES[arch]["prompt"]
+    q = torch.empty(4, P, cfg.n_heads, cfg.head_dim, device="meta")
+    k = torch.empty(4, P, cfg.n_kv_heads, cfg.head_dim, device="meta")
+    cache = torch.empty(4, P + 33, cfg.n_kv_heads, cfg.head_dim, device="meta")
+    prefill = {local: ops.prefill_shape(q, k, True, _kernel_window(cfg, local),
+                                        cfg.attn_logit_softcap) for local in (True, False)}
+    decode = {local: ops.decode_shape(q[:, :1], cache, _kernel_window(cfg, local),
+                                      cfg.attn_logit_softcap) for local in (True, False)}
+    assert prefill[True] != prefill[False] and decode[True] != decode[False]
+    assert prefill[True][-2:] == decode[True][-2:] == (cfg.sliding_window,
+                                                        cfg.attn_logit_softcap)
+    assert prefill[False][-2] is None and decode[False][-2] is None
+    if arch == "gemma2_2b":
+        assert (prefill[True], prefill[False]) == (GEMMA2_LOCAL, GEMMA2_GLOBAL)
+        assert (decode[True], decode[False]) == (GEMMA2_DEC_LOCAL, GEMMA2_DEC_GLOBAL)
+
+
+def gemma2(checked_prefill=(GEMMA2_LOCAL, GEMMA2_GLOBAL),
+           checked_decode=(GEMMA2_DEC_LOCAL, GEMMA2_DEC_GLOBAL)):
+    """``checked`` and ``paths`` for gemma2's path: 13 local and 13 global
+    layers, 32 decode steps, beside the SSM path's SSD row."""
+    checked = {("flash_prefill", "gemma2"): [
+                   checked_row(("flash_prefill", s), causal=True, window=s[-2], softcap=s[-1])
+                   for s in checked_prefill],
+               ("flash_decode", "gemma2"): [
+                   checked_row(("flash_decode", s), window=s[-2], softcap=s[-1])
+                   for s in checked_decode],
+               ("ssd_intra_chunk", "ssm"): [checked_row(("ssd_intra_chunk", (4, 1024, 80,
+                                                                            64, 128)))]}
+    shapes = Counter({("flash_prefill", GEMMA2_LOCAL): 13, ("flash_prefill", GEMMA2_GLOBAL): 13,
+                      ("flash_decode", GEMMA2_DEC_LOCAL): 416,
+                      ("flash_decode", GEMMA2_DEC_GLOBAL): 416})
+    ssm = Counter({("ssd_intra_chunk", (4, 1024, 80, 64, 128)): 64})
+    paths = {"gemma2": ({"flash_prefill": 26, "flash_decode": 832, "ssd_intra_chunk": 0},
+                        shapes, {}),
+             "ssm": ({"flash_prefill": 0, "flash_decode": 0, "ssd_intra_chunk": 64}, ssm, {})}
+    return checked, paths
+
+
+def test_kernel_rows_list_windowed_and_global_calls_apart():
+    rows = {r["name"]: r for r in smoke.kernel_rows(*gemma2())}
+    for name, n in (("flash_prefill", 13), ("flash_decode", 416)):
+        entries = [rows[name], *rows[name]["other_paths"]]
+        assert [(e["path"], e["launches"], e["window"], e["softcap"]) for e in entries] == [
+            ("gemma2", n, 4096, 50.0), ("gemma2", n, None, 50.0)]
+    assert smoke.launches_by_window(gemma2()[1]["gemma2"][1]) == smoke.windowed_launches(
+        get_config("gemma2_2b"), 32)
+
+
+@pytest.mark.parametrize("only", ["local", "global"])
+@pytest.mark.parametrize("kernel", ["flash_prefill", "flash_decode"])
+def test_kernel_rows_fail_when_phase_2_checked_one_variant(kernel, only):
+    """A path that ran a kernel windowed and global, checked in phase 2 at
+    only one of the two: refused."""
+    pick = 0 if only == "local" else 1
+    kw = ({"checked_prefill": ((GEMMA2_LOCAL, GEMMA2_GLOBAL)[pick],)} if kernel == "flash_prefill"
+          else {"checked_decode": ((GEMMA2_DEC_LOCAL, GEMMA2_DEC_GLOBAL)[pick],)})
+    with pytest.raises(AssertionError, match="ran at"):
+        smoke.kernel_rows(*gemma2(**kw))
+
+
+@pytest.mark.parametrize("arch", smoke.dense_archs())
+def test_expected_launches_of_the_dense_and_vlm_slices(arch):
+    """Served whole: one flash_prefill a layer a prefill, one flash_decode
+    a layer a step, no SSD; the windowed share is the local layers'; the
+    f32 pass at its cut."""
+    spec = smoke.SLICES[arch]
+    cfg = get_config(arch)
+    L = {"gemma2_2b": 26, "gemma3_4b": 34, "starcoder2_15b": 40, "chameleon_34b": 48}[arch]
+    assert "cut" not in spec and cfg.n_layers == L
+    assert smoke.expected_launches(spec["launches"], 32) == {
+        "flash_prefill": L, "flash_decode": 32 * L, "ssd_intra_chunk": 0}
+    local = {"gemma2_2b": 13, "gemma3_4b": 29}.get(arch, 0)
+    assert smoke.windowed_launches(cfg, 32) == {"flash_prefill": local,
+                                                "flash_decode": 32 * local}
+    assert smoke.window_launches(spec, "decode", 8) == {
+        "flash_prefill": 0, "flash_decode": 8 * L, "ssd_intra_chunk": 0}
+    f32 = {"starcoder2_15b": 20, "chameleon_34b": 12}.get(arch, L)
+    assert smoke.expected_launches(spec.get("f32_launches", spec["launches"]), 8) == {
+        "flash_prefill": f32, "flash_decode": 8 * f32, "ssd_intra_chunk": 0}
 
 
 def call(chosen, kept=None, E=4):

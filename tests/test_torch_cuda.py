@@ -84,7 +84,8 @@ class TestKernelsOnCard:
             q, k, v = (torch.randn(s, generator=g, device=cuda).to(td)
                        for s in [(2, Sq, H, hd), (2, Sk, K, hd), (2, Sk, K, hd)])
         n = ops.LAUNCHES["flash_prefill"]
-        key = ("flash_prefill", (2, Sq, Sk, H, K, hd, kw.get("causal", True)))
+        key = ("flash_prefill", (2, Sq, Sk, H, K, hd, kw.get("causal", True), kw.get("window"),
+                                 kw.get("softcap")))
         m = ops.LAUNCH_SHAPES[key]
         got = ops.flash_attention(q, k, v, scale=hd ** -0.5, **kw)
         assert ops.LAUNCHES["flash_prefill"] == n + 1 and ops.LAUNCH_SHAPES[key] == m + 1
@@ -127,7 +128,7 @@ class TestKernelsOnCard:
                       for _ in range(2))
         lens = torch.tensor((lengths * B)[:B], dtype=torch.int32, device=cuda)
         n = ops.LAUNCHES["flash_decode"]
-        key = ("flash_decode", (B, S, H, K, hd))
+        key = ("flash_decode", (B, S, H, K, hd, kw.get("window"), kw.get("softcap")))
         m = ops.LAUNCH_SHAPES[key]
         got = ops.decode_attention(q, kc, vc, lens, scale=hd ** -0.5, **kw)
         assert ops.LAUNCHES["flash_decode"] == n + 1 and ops.LAUNCH_SHAPES[key] == m + 1

@@ -4,7 +4,7 @@ The ranks are ``tests/multidevice_ranks.py``'s (group "serve": spawned
 processes joined through a ``FileStore``, one thread each, importing only
 ``repro_torch``), launched once by a module-scoped fixture; JAX's
 one-device steps and the dry-run's counts run here while they do.  Each of
-seven smoke configs (f32) goes through the port's ``Engine.generate``
+ten smoke configs (f32) goes through the port's ``Engine.generate``
 (greedy, 7 tokens: the prefill and 7 decode steps, the last of which
 feeds the seventh token back) under ``set_mesh``,
 the model placed by ``param_specs(..., "tp")``, on two (pod, data, model)
@@ -14,9 +14,9 @@ meshes:
   heads over 'model' (the caches' heads split);
 * (1, 1, 8): 2 and 4 KV heads do not divide 'model', so the caches'
   sequence splits (``decode_state_specs``), each rank attends its shard
-  and the ranks merge their partials; gemma2's window of 8 crosses the
-  shards of 3 entries and leaves some empty; mamba2's conv window (its
-  channels split evenly) is gathered at use.
+  and the ranks merge their partials; gemma2's and gemma3's windows of 8
+  cross the shards of 3 entries and leave some empty; mamba2's conv window
+  (its channels split evenly) is gathered at use.
 
 Against JAX's one-device ``make_prefill_step`` and ``make_decode_step`` on
 the same weights (bridged by ``repro_torch.weights``), run as its Engine
@@ -52,8 +52,9 @@ from repro.serve import make_prefill_step as jax_prefill_step
 from repro_torch.configs import get_smoke_config
 from repro_torch.weights import flatten
 
-ARCHS = {"stablelm": "stablelm_12b", "gemma2": "gemma2_2b", "mamba2": "mamba2_2p7b",
-         "zamba2": "zamba2_1p2b", "seamless": "seamless_m4t_large_v2",
+ARCHS = {"stablelm": "stablelm_12b", "gemma2": "gemma2_2b", "gemma3": "gemma3_4b",
+         "starcoder2": "starcoder2_15b", "chameleon": "chameleon_34b",
+         "mamba2": "mamba2_2p7b", "zamba2": "zamba2_1p2b", "seamless": "seamless_m4t_large_v2",
          "grok": "grok_1_314b", "scout": "llama4_scout_17b_a16e"}
 MESHES = {"222": [2, 2, 2], "118": [1, 1, 8]}
 CASES = [dict(name=f"{short}/{m}", arch=arch, mesh=MESHES[m])
