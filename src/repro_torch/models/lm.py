@@ -285,7 +285,10 @@ class LM(nn.Module):
         if dtype is not None:
             x = x.to(dtype)
         if self.cfg.emb_scale_by_sqrt_dim:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+            # The scale rounded to x's type on the host, as the reference's
+            # jnp.asarray(sqrt(d), x.dtype): no host-to-device copy, which a
+            # captured decode step could not hold.
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype).item()
         return x
 
     # ------------------------------------------------------------------

@@ -4,13 +4,24 @@ The port of ``repro.serve.engine``.  ``Engine`` runs a synchronous batched
 loop: greedy or temperature sampling and early stop on EOS.  As in the JAX
 engine, each step's sampled tokens go to the host before the next decode.
 
+The JAX Engine jits both steps.  Here the decode step runs as one captured
+CUDA graph (``graph.CapturedDecode``), one per layout of the decode state
+(batch size; for the encoder-decoder also the encoder's length): the
+prefill runs eagerly, its state is copied into the captured step's own, and
+every step samples on the host side, copies the tokens in and replays.  The
+first step of a layout runs eagerly on the static buffers and is then
+captured.  On the CPU the same step runs uncaptured.  ``cuda_graph=False``
+runs the eager step (the counterpart of ``jax.disable_jit``).  The prefill
+stays eager: its shapes vary with the prompt.
+
 On a device mesh: with the model placed by ``sharding.place_module(model,
 mesh, param_specs(cfg, params, sizes, "tp"))``, ``generate`` called under
 ``sharding.set_mesh(mesh)`` lays the batch out by ``batch_spec`` and runs
 both steps on DTensors, the decode state laid out by
 ``decode_state_specs``; the logits are gathered whole before sampling, and
 the sampled tokens laid out by ``batch_spec`` again.  Every rank samples
-the same tokens (temperature sampling: from generators seeded alike).
+the same tokens (temperature sampling: from generators seeded alike).  The
+decode step on a mesh runs eagerly: no graph is captured.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ import torch
 from .. import resolve_device
 from ..models import EncDecLM, LM
 from ..models import sharding
+from .graph import CapturedDecode, CudaGraph, layout
 
 Model = Union[LM, EncDecLM]
 
@@ -62,7 +74,10 @@ class Engine:
     """Synchronous batched engine over the model's prefill and decode steps.
 
     ``model`` must already hold its weights on ``device`` (CUDA unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU).  With ``cuda_graph`` (the default) the decode
+    step runs through ``CapturedDecode``: captured and replayed on CUDA,
+    uncaptured on the CPU; a capture or replay that fails raises.  Without
+    it, and on a mesh, the decode step runs eagerly."""
 
     def __init__(
         self,
@@ -71,6 +86,7 @@ class Engine:
         max_len: int = 256,
         eos_id: Optional[int] = None,
         device="cuda",
+        cuda_graph: bool = True,
     ):
         self.device = resolve_device(device)
         weights_on = model.embed.device
@@ -80,8 +96,10 @@ class Engine:
         self.model = model
         self.max_len = max_len
         self.eos_id = eos_id
+        self.cuda_graph = cuda_graph
         self._prefill = make_prefill_step(model, max_len=max_len)
-        self._decode = make_decode_step(model)
+        self._eager_decode = make_decode_step(model)
+        self._steps: Dict[tuple, CapturedDecode] = {}
 
     def generate(
         self,
@@ -116,6 +134,21 @@ class Engine:
                     break
             logits, state = self._decode(state, self._laid_out(nxt[:, None]))
         return GenerationResult(tokens=np.stack(outs, axis=1), steps=len(outs))
+
+    def _decode(self, state: Dict[str, Any], tokens: torch.Tensor):
+        """One decode step: the captured step of ``state``'s layout, or the
+        eager one (``cuda_graph`` off, or a mesh)."""
+        if not self.cuda_graph or sharding.current_mesh() is not None:
+            return self._eager_decode(state, tokens)
+        return self.captured_step(state)(state, tokens)
+
+    def captured_step(self, state: Dict[str, Any]) -> CapturedDecode:
+        """The decode step of ``state``'s layout, made at its first use."""
+        key = layout(state)
+        if key not in self._steps:
+            graph = CudaGraph if self.device.type == "cuda" else None
+            self._steps[key] = CapturedDecode(self._eager_decode, state, graph)
+        return self._steps[key]
 
     def _laid_out(self, t: torch.Tensor) -> torch.Tensor:
         """A batch tensor laid out by ``batch_spec`` (tp) over the current

@@ -3,7 +3,10 @@
 * ``SLICES`` names each served model at its published widths, with a cut
   of depth only, and launch counts that follow from the depth it serves;
   a windowed model's prompt and decode steps run past its window; each
-  slice's reckoned peak fits the card.
+  slice's reckoned peak, two decode states included, fits the card.
+* Phase 3's graph parity gate: the captured decode step's teacher-forced
+  logits equal the eager run's bit for bit, and a planted replay of a
+  stale state fails it.
 * ``kernel_rows`` builds the ``kernels`` line from the checks and the
   launches by shape, and fails where a path ran a kernel at a shape that
   was not checked, or a shape was checked for a path that never ran it; a
@@ -228,16 +231,32 @@ def test_windowed_prompt_and_decode_steps_exceed_the_window(arch):
 @pytest.mark.parametrize("arch", list(smoke.SLICES))
 def test_reckoned_peak_fits_the_card(arch):
     """The bf16 pass (weights at ``cut``, plus the full-depth f32 copy
-    where the arch has no bf16 gate) and the f32 pass (at ``f32_cut``), each
-    with init's f32 draw of the embedding, under PEAK_GB_MAX of the 80 GB."""
+    where the arch has no bf16 gate, plus two decode states: the Engine's
+    captured step's and the prefill's copied into it) and the f32 pass (at
+    ``f32_cut``), each with init's f32 draw of the embedding, under
+    PEAK_GB_MAX of the 80 GB."""
     spec = smoke.SLICES[arch]
     bf16, f32 = smoke.reckoned_peak_bytes(arch)
     cfg = get_config(arch).replace(**spec.get("cut", {}))
     draw = 8 * cfg.vocab * cfg.d_model
     copy = 0 if arch in smoke.LOGIT_GATES else 4 * cfg.param_count()
-    assert bf16 == 2 * cfg.param_count() + copy + draw
+    states = 2 * smoke.decode_state_bytes(arch)
+    assert bf16 == 2 * cfg.param_count() + copy + draw + states
     assert f32 == 4 * cfg.replace(**spec.get("f32_cut", {})).param_count() + draw
     assert max(bf16, f32) <= smoke.PEAK_GB_MAX * 1e9 < 80e9
+
+
+def test_decode_state_bytes_are_the_caches_and_pos():
+    """chameleon's decode state at the Engine's max_len (512 + 33): the K
+    and V caches of 48 layers, batch 4, 8 KV heads of 128 in bf16, and the
+    int32 positions, ~0.43 GB; the live zero state of a narrow one
+    matches the same reckoning."""
+    assert smoke.decode_state_bytes("chameleon_34b") == 48 * 2 * 4 * 545 * 8 * 128 * 2 + 4 * 4
+    cfg = get_smoke_config("chameleon_34b").replace(dtype="bfloat16")
+    model = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    state = model.decode_init(4, 40)
+    assert smoke.tree_bytes(state) == cfg.n_layers * 2 * 4 * 40 * cfg.n_kv_heads * \
+        cfg.head_dim * 2 + 4 * 4
 
 
 def test_reckoned_peak_counts_the_live_model():
@@ -248,6 +267,46 @@ def test_reckoned_peak_counts_the_live_model():
     model = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
     norms = sum(p.numel() for n, p in model.named_parameters() if "norm" in n or "ln" in n)
     assert sum(p.numel() for p in model.parameters()) - norms == cfg.param_count()
+
+
+def graph_case(arch, steps=6, prompt=12):
+    """A smoke model on the CPU, its Engine after a generate (so its
+    captured step has run), the prompts, the generated tokens and the eager
+    teacher-forced logits, as phase 3 holds them."""
+    from repro_torch.serve import Engine
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    model = get_model(cfg).init(gen, device="cpu")
+    prompt = 32 if cfg.family in ("ssm", "hybrid") else prompt
+    inputs = smoke.make_inputs(cfg, gen, 2, prompt, device="cpu")
+    max_len = prompt + steps + 1
+    engine = Engine(model, max_len=max_len, device="cpu")
+    generated = torch.from_numpy(engine.generate(inputs, steps).tokens)
+    eager = smoke.teacher_forced_logits(model, inputs, generated, max_len)[0]
+    return engine, inputs, generated, eager
+
+
+@pytest.mark.parametrize("arch", ["stablelm_12b", "grok_1_314b", "zamba2_1p2b",
+                                  "seamless_m4t_large_v2"])
+def test_graph_parity_passes_on_equal_logits(arch):
+    """Phase 3's gate: the captured step's teacher-forced logits (run
+    uncaptured on the CPU) equal the eager run's bit for bit."""
+    engine, inputs, generated, eager = graph_case(arch)
+    got = smoke.graph_teacher_forced(engine, inputs, generated)
+    assert smoke.graph_parity(arch, got, eager) == dict(bit_equal=True, positions=7)
+
+
+@pytest.mark.parametrize("arch", ["stablelm_12b", "mamba2_2p7b", "seamless_m4t_large_v2"])
+def test_graph_parity_refuses_a_stale_state_replay(arch):
+    """The planted control: a step replayed on the captured step's own
+    state as the last call left it, the prefill's state not copied in,
+    fails the gate; the same step with the state copied in passes it."""
+    engine, inputs, generated, eager = graph_case(arch)
+    refused = smoke.stale_control(arch, engine, generated, eager)
+    assert "planted: stale state" in refused and "positions [1]" in refused
+    fresh = smoke.graph_teacher_forced(engine, inputs, generated[:, :1])
+    smoke.graph_parity(arch, fresh, eager[:, :2])
 
 
 GEMMA2_LOCAL = (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0)
@@ -618,7 +677,7 @@ def test_failover_phase_on_cpu(failover_cpu):
 
 
 def slow_failover_step(out):
-    out["around_failover"][0]["ratio"] = smoke.STEP_RATIO_MAX + 0.01
+    out["around_failover"][0]["held_ratio"] = smoke.STEP_RATIO_MAX + 0.01
 
 
 def early_epoch(out):
@@ -664,8 +723,48 @@ def violated(out):
                          ids=lambda f: f.__name__)
 def test_failover_gates_reject(failover_cpu, fault):
     out = copy.deepcopy(failover_cpu)
+    for s in out["around_failover"]:  # the CPU has no device span: read at the median
+        s["held_ratio"] = 1.0
+    assert smoke.failover_gates(out, timed=True) == []
     fault(out)
     assert smoke.failover_gates(out, timed=True)
+
+
+def failover_rows(device_ms, host_ms):
+    """90 steps, the failover in step 70 (epoch 0 up to it, 1 after)."""
+    return [dict(step=i + 1, epoch=int(i >= 70), ms=d + h, device_ms=d, control_ms=0.0,
+                 gc_ms=0.0, cpu_ms=0.0, step_fn_ms=0.0)
+            for i, (d, h) in enumerate(zip(device_ms, host_ms))]
+
+
+@pytest.mark.parametrize("case", ["steady", "device_spike", "host_stall", "no_span"])
+def test_failover_step_ratios(failover_cpu, case):
+    # the held ratio puts the step's device span at its epoch's median: a
+    # step slow on the device alone passes the gate, a stall of the host not
+    device, host = [370.0] * 90, [2.5] * 90
+    if case == "device_spike":
+        device[69] = 370.0 * 1.08  # the H100's own spread reached 1.078
+    if case == "host_stall":
+        host[69] = 2.5 + 0.06 * 372.5
+    rows = failover_rows(device, host)
+    if case == "no_span":
+        for r in rows:
+            r["device_ms"] = None
+    medians, around = smoke.failover_step_ratios(rows, 70)
+    assert medians == {0: 372.5, 1: 372.5} and [s["step"] for s in around] == [70, 71]
+    out = copy.deepcopy(failover_cpu)
+    out["around_failover"] = around
+    faults = smoke.failover_gates(out, timed=True)
+    ratio, held = around[0]["ratio"], around[0]["held_ratio"]
+    if case == "steady":
+        assert ratio == held == 1.0 and around[1]["held_ratio"] == 1.0 and faults == []
+    elif case == "device_spike":
+        assert ratio > smoke.STEP_RATIO_MAX and held == 1.0 and faults == []
+    elif case == "host_stall":
+        assert held == pytest.approx(1.06) and [f[:8] for f in faults] == ["step 70:"]
+    else:
+        assert held is None and ratio == 1.0
+        assert [f[:8] for f in faults] == ["step 70:", "step 71:"]
 
 
 def test_testbed_phase_on_cpu(monkeypatch):
