@@ -4,24 +4,32 @@ The port of ``repro.serve.engine``.  ``Engine`` runs a synchronous batched
 loop: greedy or temperature sampling and early stop on EOS.  As in the JAX
 engine, each step's sampled tokens go to the host before the next decode.
 
-The JAX Engine jits both steps.  Here the decode step runs as one captured
-CUDA graph (``graph.CapturedDecode``), one per layout of the decode state
-(batch size; for the encoder-decoder also the encoder's length): the
-prefill runs eagerly, its state is copied into the captured step's own, and
-every step samples on the host side, copies the tokens in and replays.  The
-first step of a layout runs eagerly on the static buffers and is then
-captured.  On the CPU the same step runs uncaptured.  ``cuda_graph=False``
-runs the eager step (the counterpart of ``jax.disable_jit``).  The prefill
-stays eager: its shapes vary with the prompt.
+The JAX Engine jits both steps.  Here each runs as a captured CUDA graph
+(``graph.CapturedStep``), one per layout of its inputs, with or without a
+mesh: the prefill per layout of the batch (``tokens`` (B, S); for the
+encoder-decoder also ``enc_emb``), as JAX compiles one program per prompt
+shape, the last layout's kept; and the decode step
+(``graph.CapturedDecode``) per layout of the decode state (batch size,
+``max_len``; for the encoder-decoder also the encoder's length).  A call copies its inputs into the step's static
+buffers and replays; the prefill's state is copied into the decode step's
+own, and every step samples on the host side, copies the tokens in and
+replays.  The first call of a layout runs eagerly on the static buffers and
+is then captured.  On the CPU the same steps run uncaptured.
+``cuda_graph=False`` runs both steps eagerly (the counterpart of
+``jax.disable_jit``), and is the only eager route.
 
 On a device mesh: with the model placed by ``sharding.place_module(model,
 mesh, param_specs(cfg, params, sizes, "tp"))``, ``generate`` called under
 ``sharding.set_mesh(mesh)`` lays the batch out by ``batch_spec`` and runs
-both steps on DTensors, the decode state laid out by
-``decode_state_specs``; the logits are gathered whole before sampling, and
-the sampled tokens laid out by ``batch_spec`` again.  Every rank samples
-the same tokens (temperature sampling: from generators seeded alike).  The
-decode step on a mesh runs eagerly: no graph is captured.
+both steps on DTensors, captured as without a mesh (the layout keys hold
+each tensor's mesh and placements), the decode state laid out by
+``decode_state_specs``; the logits are gathered whole before sampling,
+between replays, and the sampled tokens laid out by ``batch_spec`` again
+and copied shard by shard into the step's token buffer.  Every rank
+samples the same tokens (temperature sampling: from generators seeded
+alike) and replays the same steps in the same order.  The captured
+collectives have run on one rank only: serve a mesh of several ranks with
+``cuda_graph=False`` until they have run on several.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch
 from .. import resolve_device
 from ..models import EncDecLM, LM
 from ..models import sharding
-from .graph import CapturedDecode, CudaGraph, layout
+from .graph import CapturedDecode, CapturedStep, CudaGraph, decode_inputs, layout
 
 Model = Union[LM, EncDecLM]
 
@@ -74,10 +82,24 @@ class Engine:
     """Synchronous batched engine over the model's prefill and decode steps.
 
     ``model`` must already hold its weights on ``device`` (CUDA unless the
-    caller asks for the CPU).  With ``cuda_graph`` (the default) the decode
-    step runs through ``CapturedDecode``: captured and replayed on CUDA,
-    uncaptured on the CPU; a capture or replay that fails raises.  Without
-    it, and on a mesh, the decode step runs eagerly."""
+    caller asks for the CPU).  With ``cuda_graph`` (the default) the prefill
+    and the decode step run through ``CapturedStep`` and ``CapturedDecode``:
+    captured and replayed on CUDA, uncaptured on the CPU, with or without a
+    mesh; a capture or replay that fails raises.  Without it both run
+    eagerly.
+
+    Memory: a captured step keeps its graph's memory pool (its outputs and
+    its temporaries) while the Engine holds it.  The Engine holds one
+    captured prefill, the last batch layout's (a prompt of a new length
+    replaces it, and pays an eager prefill and a capture again), and one
+    decode step for each layout of the decode state (batch size,
+    ``max_len``; for the encoder-decoder the encoder's length), each with
+    a whole decode state at ``max_len``.
+
+    On a mesh of more than one rank the captured steps hold NCCL
+    collectives, which have run captured on one rank only; until a run on
+    several cards has held them to the eager steps, serve such a mesh with
+    ``cuda_graph=False``."""
 
     def __init__(
         self,
@@ -97,8 +119,9 @@ class Engine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.cuda_graph = cuda_graph
-        self._prefill = make_prefill_step(model, max_len=max_len)
+        self._eager_prefill = make_prefill_step(model, max_len=max_len)
         self._eager_decode = make_decode_step(model)
+        self._prefills: Dict[tuple, CapturedStep] = {}
         self._steps: Dict[tuple, CapturedDecode] = {}
 
     def generate(
@@ -135,19 +158,41 @@ class Engine:
             logits, state = self._decode(state, self._laid_out(nxt[:, None]))
         return GenerationResult(tokens=np.stack(outs, axis=1), steps=len(outs))
 
+    def _graph(self):
+        return CudaGraph if self.device.type == "cuda" else None
+
+    def _prefill(self, batch: Dict[str, torch.Tensor]):
+        """The prefill: (last-position logits (B, 1, V), decode state), both
+        the captured prefill's outputs, valid until the next prefill of the
+        batch's layout; eager with ``cuda_graph`` off."""
+        if not self.cuda_graph:
+            return self._eager_prefill(batch)
+        return self.captured_prefill(batch)(batch)
+
+    def captured_prefill(self, batch: Dict[str, torch.Tensor]) -> CapturedStep:
+        """The prefill of ``batch``'s layout, made at its first use.  It
+        replaces the captured prefill of the last layout, whose graph and
+        memory pool go with it: an Engine holds one captured prefill."""
+        key = layout(batch)
+        if key not in self._prefills:
+            self._prefills = {key: CapturedStep(self._eager_prefill, batch, self._graph())}
+        return self._prefills[key]
+
     def _decode(self, state: Dict[str, Any], tokens: torch.Tensor):
         """One decode step: the captured step of ``state``'s layout, or the
-        eager one (``cuda_graph`` off, or a mesh)."""
-        if not self.cuda_graph or sharding.current_mesh() is not None:
+        eager one with ``cuda_graph`` off."""
+        if not self.cuda_graph:
             return self._eager_decode(state, tokens)
-        return self.captured_step(state)(state, tokens)
+        return self.captured_step(state, tokens)(state, tokens)
 
-    def captured_step(self, state: Dict[str, Any]) -> CapturedDecode:
-        """The decode step of ``state``'s layout, made at its first use."""
-        key = layout(state)
+    def captured_step(self, state: Dict[str, Any],
+                      tokens: Optional[torch.Tensor] = None) -> CapturedDecode:
+        """The decode step of the layout of ``state`` and ``tokens`` (by
+        default (B, 1) int64), made at its first use."""
+        state, tokens = decode_inputs(state, tokens)
+        key = layout((state, tokens))
         if key not in self._steps:
-            graph = CudaGraph if self.device.type == "cuda" else None
-            self._steps[key] = CapturedDecode(self._eager_decode, state, graph)
+            self._steps[key] = CapturedDecode(self._eager_decode, state, self._graph(), tokens)
         return self._steps[key]
 
     def _laid_out(self, t: torch.Tensor) -> torch.Tensor:

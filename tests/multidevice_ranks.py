@@ -501,7 +501,11 @@ def _serve_case(arrays, case):
     ``param_specs(..., "tp")``: the tokens, every step's logits whole, the
     decode state's placements after each step beside ``to_placements`` of
     the reference's spec, and the collectives of the prefill step and of
-    the first decode step (``trace_analysis.count``)."""
+    the first decode step (``trace_analysis.count``), and the Engine's
+    captured steps (uncaptured on the CPU, on the static buffers that the
+    card captures with): whether each one's buffers are DTensors, and
+    whether each decode step returned its captured step's own state."""
+    from torch.utils._pytree import tree_leaves
     from repro_torch.launch import trace_analysis
     from repro_torch.models import sharding
     from repro_torch.serve import Engine
@@ -516,7 +520,7 @@ def _serve_case(arrays, case):
     batch = {k: torch.from_numpy(arrays[prefix + f"batch/{k}"]) for k in case["batch_keys"]}
     eng = Engine(model, max_len=case["max_len"], device="cpu")
     logits, placements, collectives = [], [], {}
-    want = {}
+    want, static_states = {}, []
 
     def watched(kind, fn):
         def run(*args):
@@ -527,6 +531,8 @@ def _serve_case(arrays, case):
                 collectives[kind] = trace_analysis.count(
                     lambda: out.update(r=fn(*args))).collectives
             lg, state = out["r"]
+            if kind == "decode":  # the captured step's own state, not a copy
+                static_states.append(any(state is st.state for st in eng._steps.values()))
             logits.append(sharding.whole(lg)[:, -1].numpy())
             leaves = dict(_flat_state(state))
             placements.append({k: _placements(v) for k, v in leaves.items()})
@@ -541,8 +547,12 @@ def _serve_case(arrays, case):
     with sharding.set_mesh(mesh):
         res = eng.generate(batch, case["steps"])
     seconds = time.perf_counter() - t0
+    captured = {kind: [sorted({isinstance(t, sharding.DTensor)
+                               for t in tree_leaves(step.inputs)}) for step in steps.values()]
+                for kind, steps in (("prefill", eng._prefills), ("decode", eng._steps))}
     return ({f"{case['name']}/logits": np.stack(logits), f"{case['name']}/tokens": res.tokens},
-            dict(placements=placements, want=want, collectives=collectives, seconds=seconds))
+            dict(placements=placements, want=want, collectives=collectives, seconds=seconds,
+                 captured=captured, static_states=static_states))
 
 
 def _group_serve(rank, arrays, spec, tmp):

@@ -3,10 +3,12 @@
 * ``SLICES`` names each served model at its published widths, with a cut
   of depth only, and launch counts that follow from the depth it serves;
   a windowed model's prompt and decode steps run past its window; each
-  slice's reckoned peak, two decode states included, fits the card.
-* Phase 3's graph parity gate: the captured decode step's teacher-forced
+  slice's reckoned peak, three decode states included, fits the card.
+* Phase 3's graph parity gates: the captured decode step's teacher-forced
   logits equal the eager run's bit for bit, and a planted replay of a
-  stale state fails it.
+  stale state fails it; the captured prefill's logits and decode state
+  equal the eager prefill's, and a planted replay of a stale prompt fails
+  that.
 * ``kernel_rows`` builds the ``kernels`` line from the checks and the
   launches by shape, and fails where a path ran a kernel at a shape that
   was not checked, or a shape was checked for a path that never ran it; a
@@ -44,6 +46,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import ops
 from repro_torch.models import get_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -231,8 +234,9 @@ def test_windowed_prompt_and_decode_steps_exceed_the_window(arch):
 @pytest.mark.parametrize("arch", list(smoke.SLICES))
 def test_reckoned_peak_fits_the_card(arch):
     """The bf16 pass (weights at ``cut``, plus the full-depth f32 copy
-    where the arch has no bf16 gate, plus two decode states: the Engine's
-    captured step's and the prefill's copied into it) and the f32 pass (at
+    where the arch has no bf16 gate, plus three decode states: the Engine's
+    captured decode step's, its captured prefill's that is copied into it,
+    and an eager prefill's beside them) and the f32 pass (at
     ``f32_cut``), each with init's f32 draw of the embedding, under
     PEAK_GB_MAX of the 80 GB."""
     spec = smoke.SLICES[arch]
@@ -240,7 +244,7 @@ def test_reckoned_peak_fits_the_card(arch):
     cfg = get_config(arch).replace(**spec.get("cut", {}))
     draw = 8 * cfg.vocab * cfg.d_model
     copy = 0 if arch in smoke.LOGIT_GATES else 4 * cfg.param_count()
-    states = 2 * smoke.decode_state_bytes(arch)
+    states = 3 * smoke.decode_state_bytes(arch)
     assert bf16 == 2 * cfg.param_count() + copy + draw + states
     assert f32 == 4 * cfg.replace(**spec.get("f32_cut", {})).param_count() + draw
     assert max(bf16, f32) <= smoke.PEAK_GB_MAX * 1e9 < 80e9
@@ -307,6 +311,38 @@ def test_graph_parity_refuses_a_stale_state_replay(arch):
     assert "planted: stale state" in refused and "positions [1]" in refused
     fresh = smoke.graph_teacher_forced(engine, inputs, generated[:, :1])
     smoke.graph_parity(arch, fresh, eager[:, :2])
+
+
+@pytest.mark.parametrize("arch", ["stablelm_12b", "gemma2_2b", "grok_1_314b", "zamba2_1p2b",
+                                  "seamless_m4t_large_v2"])
+def test_prefill_parity_passes_on_the_captured_prefill(arch):
+    """Phase 3's prefill gate: the Engine's captured prefill (uncaptured on
+    the CPU, on its static batch) gives the eager prefill's logits and
+    decode state bit for bit, every tensor of it."""
+    from repro_torch.serve import Engine
+
+    engine, inputs, _, _ = graph_case(arch)
+    eager = Engine(engine.model, max_len=engine.max_len, device="cpu", cuda_graph=False)
+    reading = smoke.prefill_parity(arch, engine._prefill(inputs), eager._prefill(inputs))
+    assert reading["bit_equal"] and reading["outputs"] >= 4
+    assert len(engine._prefills) == 1 and not eager._prefills
+
+
+@pytest.mark.parametrize("arch", ["stablelm_12b", "mamba2_2p7b", "seamless_m4t_large_v2"])
+def test_prefill_parity_refuses_a_stale_prompt_replay(arch):
+    """The planted control: the captured prefill run again on its static
+    batch, a new prompt of the same layout not copied in, fails the gate
+    against the eager prefill of that prompt; with the prompt copied in it
+    passes."""
+    from repro_torch.serve import Engine
+
+    engine, inputs, _, _ = graph_case(arch)
+    eager = Engine(engine.model, max_len=engine.max_len, device="cpu", cuda_graph=False)
+    other = smoke.make_inputs(engine.cfg, torch.Generator().manual_seed(1), 2,
+                              inputs["tokens"].shape[1], device="cpu")
+    refused = smoke.stale_prompt_control(arch, engine, eager, other)
+    assert "planted: stale prompt" in refused and "(0, (2, 1, " in refused
+    smoke.prefill_parity(arch, engine._prefill(other), eager._prefill(other))
 
 
 GEMMA2_LOCAL = (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0)
@@ -837,7 +873,8 @@ def test_mesh_families_spec_is_published_widths_cut_in_depth_only():
 def test_mesh_serve_phase_on_cpu():
     """Phase 11 on the CPU: (a) through the same code at the smoke size
     (stablelm, mamba2, seamless), (b) the MoE, hybrid and windowed smoke
-    configs, on a one-rank gloo group's (1, 1, 1) mesh against no mesh,
+    configs, on a one-rank gloo group's (1, 1, 1) mesh through the Engine's
+    captured steps against no mesh and against the mesh's eager steps,
     bit-equal; (c) the plain decode on sequence shards of a small cache,
     merged, against the whole cache, with empty shards."""
     threads = torch.get_num_threads()
@@ -857,11 +894,105 @@ def test_mesh_serve_phase_on_cpu():
     assert len(out["smoke"]) == len(smoke.MESH_SERVE["smoke"])
     for row in out["full"] + out["smoke"]:
         assert row["tokens_equal"] and row["logits_bit_equal"] and row["placements_ok"], row
+        # through the Engine's captured steps (uncaptured on the CPU), equal
+        # to the mesh's eager steps
+        assert row["mesh_graph_equals_eager"] and row["captured"] == [1, 1], row
+        assert row["new_prompt_prefill"]["bit_equal"], row  # on another prompt too
+        assert row["replays"] == [0, 0] and row["eager_launches"] == row["launches"], row
     (dense, windowed) = out["shards"]
     assert dense["launches_per_merge"] == 0 and windowed["empty_shard_rows"] > 0
     for row in (dense, windowed):  # the merge's gate refused both planted faults
         assert set(row["controls_refused"]) == {"lse zeroed", "key_offset ignored"}, row
     assert "ms" not in dense
+
+
+def test_mesh_new_prompt_gate_refuses_a_stale_prompt(monkeypatch):
+    """Phase 11's new-prompt gate: the captured prefill called on the batch's
+    rows reversed equals the eager prefill of them; with the copy into the
+    static batch planted away (the replay runs on the last prompt), the
+    gate reads the fault."""
+    from repro_torch.serve import Engine
+    from repro_torch.serve.graph import CapturedStep
+
+    cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
+    model = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (2, 8),
+                                      generator=torch.Generator().manual_seed(1))}
+    eng = Engine(model, max_len=16, device="cpu")
+    eager = Engine(model, max_len=16, device="cpu", cuda_graph=False)
+    eng._prefill(inputs)
+    assert smoke._mesh_new_prompt(eng, eager, inputs, None)["bit_equal"]
+    eng._prefill(inputs)
+    monkeypatch.setattr(CapturedStep, "load", lambda self, batch: None)
+    reading = smoke._mesh_new_prompt(eng, eager, inputs, None)
+    assert not reading["bit_equal"] and "differ from the eager" in reading["fault"]
+
+
+class CountingEngine:
+    """An Engine stand-in whose steps count launches as the wrappers do:
+    one flash_prefill a prefill, two flash_decode a decode step."""
+
+    def _laid_out(self, t):
+        return t
+
+    def _prefill(self, batch):
+        ops.LAUNCHES["flash_prefill"] += 1
+        return torch.zeros(2, 1, 5), {}
+
+    def _decode(self, state, tokens):
+        ops.LAUNCHES["flash_decode"] += 2
+        return torch.zeros(2, 1, 5), state
+
+
+@pytest.mark.parametrize("prefill_miss,decode_miss,missing_ok,passes", [
+    (0, 0, None, True), (1, 0, None, True), (2, 0, None, False), (3, 0, None, False),
+    (0, 1, None, False), (1, 0, {}, False)])
+def test_traced_window_leads_in_before_its_body_and_gates_the_trace(
+        monkeypatch, prefill_miss, decode_miss, missing_ok, passes):
+    """``traced_window``, here under phase 11's profile of the mesh's
+    replays: the window waits ``WINDOW_LEAD_S`` inside the profiler before
+    its body (the trace drops kernels that run in a window's first
+    moments), and raises when the device trace shows fewer launches than
+    the host counted beyond ``MESH_WINDOW_MISSING_OK`` (None: the phase's
+    own), which allows the prefill's wrappers one kernel fewer, never
+    none, and the decode step's none."""
+    import contextlib
+    from types import SimpleNamespace
+    from repro_torch.launch import trace_analysis
+
+    assert "flash_decode" not in smoke.MESH_WINDOW_MISSING_OK
+    events = []
+
+    class Counting(CountingEngine):
+        def _prefill(self, batch):
+            events.append("prefill")
+            ops.LAUNCHES["flash_prefill"] += 2
+            return super()._prefill(batch)
+
+    def read_profile(prof, wall_ms):
+        device = {"flash_prefill_wgmma_kernel": 3 - prefill_miss,
+                  "flash_decode_bf16_kernel": 4 - decode_miss,
+                  "ssd_intra_chunk_bf16_kernel": 0}
+        return SimpleNamespace(launches_of=device.__getitem__, busy_share=0.5, kernels={})
+
+    monkeypatch.setattr(trace_analysis, "read_profile", read_profile)
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(smoke.time, "sleep", lambda s: events.append(("sleep", s)))
+    monkeypatch.setattr(ops, "LAUNCHES", dict(ops.LAUNCHES))  # this test's counts only
+    if missing_ok is not None:
+        monkeypatch.setattr(smoke, "MESH_WINDOW_MISSING_OK", missing_ok)
+    inputs = {"tokens": torch.zeros(2, 3, dtype=torch.long)}
+    if not passes:
+        with pytest.raises(AssertionError, match="device-side launches"):
+            smoke._mesh_replay_profile(Counting(), inputs, None)
+    else:
+        out = smoke._mesh_replay_profile(Counting(), inputs, None)
+        assert out["host_launches"] == {"flash_prefill": 3, "flash_decode": 4,
+                                        "ssd_intra_chunk": 0}
+        assert out["device_launches"] == {"flash_prefill": 3 - prefill_miss,
+                                          "flash_decode": 4, "ssd_intra_chunk": 0}
+    assert events == [("sleep", smoke.WINDOW_LEAD_S), "prefill"]
 
 
 def test_mesh_serve_spec_is_published_widths():

@@ -9,7 +9,9 @@ function that the card captures.  On weights bridged from a JAX ``init``:
 * for one config of each family the step's logits are bit-equal to eager
   ``make_decode_step``'s at every step, teacher-forced;
 * calls of ``generate`` on one Engine with other prompts and batch sizes
-  give what fresh Engines give: no state of an earlier call survives;
+  give what fresh Engines give: no state of an earlier call survives, and
+  each batch layout has its own captured prefill
+  (tests/test_torch_prefill_graph.py holds the prefill itself);
 * launch accounting, with a stand-in graph: a capture leaves
   ``ops.LAUNCHES`` / ``LAUNCH_SHAPES`` as they were, each replay adds one
   step's counts.
@@ -69,7 +71,7 @@ def batch(cfg, B, S, seed=0):
     """numpy-seeded prompts (B, S); for the encoder-decoder also enc_emb.
     The SSM families take two smoke chunks, so the inter-chunk recurrence runs."""
     rng = np.random.default_rng(seed)
-    S = 32 if cfg.arch_id in SSM_ARCHS else S
+    S = 32 if cfg.family in ("ssm", "hybrid") else S
     out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
     if cfg.family == "encdec":
         out["enc_emb"] = rng.standard_normal((B, cfg.enc_len, cfg.d_model)).astype(np.float32)
@@ -90,6 +92,7 @@ def test_greedy_tokens_match_jax_engine_gemma3():
     assert got.steps == want.steps == 6
     np.testing.assert_array_equal(got.tokens, want.tokens)
     assert len(eng._steps) == 1  # the one layout went through the captured step
+    assert len(eng._prefills) == 1  # and through the captured prefill
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -127,6 +130,11 @@ def test_calls_on_one_engine_match_fresh_engines(arch):
         np.testing.assert_array_equal(
             got, Engine(model, max_len=40, device="cpu").generate(b, 5).tokens)
     assert len(eng._steps) == 2  # batch 2 and batch 3
+    # one captured prefill, the last batch layout's (the SSM families'
+    # prompts are all 32 long)
+    (step,) = eng._prefills.values()
+    B, S, _ = cases[-1]
+    assert tuple(step.inputs["tokens"].shape) == (B, 32 if arch in SSM_ARCHS else S)
 
 
 class StandInGraph:
@@ -174,10 +182,14 @@ def test_capture_leaves_launch_counts_and_each_replay_adds_a_step():
 
 
 def test_a_state_of_another_layout_is_refused():
+    """The state and the tokens are held to the step's layout alike: another
+    batch size or another token type is refused."""
     state = {"pos": torch.zeros(2, dtype=torch.int32)}
     step = CapturedDecode(counting_step, state)
-    with pytest.raises(ValueError, match="layout"):
-        step.load({"pos": torch.zeros(3, dtype=torch.int32)})
+    tok = torch.ones(2, 1, dtype=torch.long)
+    for other in (({"pos": torch.zeros(3, dtype=torch.int32)}, tok), (state, tok.int())):
+        with pytest.raises(ValueError, match="layout"):
+            step(*other)
 
 
 def test_the_graph_can_be_turned_off():

@@ -492,6 +492,29 @@ def test_read_profile_on_a_synthetic_trace():
     assert timed.busy_share == pytest.approx(0.24 / 2.0)
 
 
+@pytest.mark.parametrize("expected,missing_ok,passes", [
+    ({"flash_prefill_wgmma_kernel": 41}, {"flash_prefill_wgmma_kernel": 1}, True),
+    ({"flash_prefill_wgmma_kernel": 42}, {"flash_prefill_wgmma_kernel": 1}, False),
+    ({"flash_prefill_wgmma_kernel": 41}, {"flash_decode_bf16_kernel": 1}, False),
+    ({"flash_decode_bf16_kernel": 2}, {"flash_prefill_wgmma_kernel": 1}, False),
+    ({"ssd_intra_chunk_bf16_kernel": 1}, {"ssd_intra_chunk_bf16_kernel": 1}, False),
+    ({"ssd_intra_chunk_bf16_kernel": 0}, {"ssd_intra_chunk_bf16_kernel": 1}, True)])
+def test_check_launches_allows_only_the_named_shortfall(expected, missing_ok, passes):
+    """``check_launches`` with ``missing_ok``: a named kernel may show at
+    most that many launches fewer than expected, never more and never none
+    where any was expected; every other kernel is held exactly."""
+    events = [_event("void flash_prefill_wgmma_kernel<160, 1>(PrefillArgs)", 10.0 * i,
+                     10.0 * i + 5) for i in range(40)]
+    events += [_event("void flash_decode_bf16_kernel<160>(DecodeArgs)", 500.0, 510.0)]
+    reading = trace_analysis.read_profile(SimpleNamespace(events=lambda: events))
+    if passes:
+        got = trace_analysis.check_launches(reading, expected, missing_ok)
+        assert got == {s: reading.launches_of(s) for s in expected}
+    else:
+        with pytest.raises(AssertionError, match="at most"):
+            trace_analysis.check_launches(reading, expected, missing_ok)
+
+
 def test_read_profile_on_a_cpu_decode_step():
     cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
     model = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")

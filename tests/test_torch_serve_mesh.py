@@ -29,7 +29,11 @@ runs them (argmax of the last logits fed back):
     ``decode_state_specs`` gives for its state;
 (d) the collectives of the prefill step and of a decode step on the ranks
     (rank 0's) equal, record for record, those ``dryrun.mesh_serving_count``
-    counts on a fake world of 8 on meta.
+    counts on a fake world of 8 on meta;
+(e) both steps go through the Engine's captured steps (``serve.graph``;
+    uncaptured on the CPU, on the static buffers that the card captures
+    with): one captured prefill and one decode step, every buffer a
+    DTensor, every decode step returning the captured step's own state.
 """
 
 import json
@@ -236,3 +240,13 @@ def test_collectives_match_the_dry_run(serve_run, case):
     family = get_smoke_config(case["arch"]).family
     if case["mesh"] == MESHES["118"] and family in ("dense", "moe", "encdec", "hybrid"):
         assert any(c["op"] == "all-reduce" for c in got["decode"])
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_the_mesh_engine_runs_its_captured_steps(serve_run, case):
+    """(e) Under ``set_mesh`` the Engine's prefill and decode step are its
+    captured steps, on DTensor buffers: one layout each, and every decode
+    step hands back the captured step's static state."""
+    row = serve_run["out"][case["name"]]
+    assert row["captured"] == {"prefill": [[True]], "decode": [[True]]}, row["captured"]
+    assert row["static_states"] == [True] * STEPS
