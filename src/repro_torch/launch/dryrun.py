@@ -23,7 +23,9 @@ shapes only, nothing allocated) and
     parameters' specs; a serving cell (``mesh_serving_count``) with the
     parameters laid out by ``param_specs(..., "tp")``, the batch by
     ``batch_spec`` and the decode state by ``decode_state_specs``; each
-    under ``set_mesh``.  ``count`` of that run gives one device's FLOPs
+    under ``set_mesh``, where the step contracts each weight on its 'model'
+    shard (tensor parallelism, as the reference's ``tp``) and gathers it
+    over 'data' only.  ``count`` of that run gives one device's FLOPs
     and bytes (its local ops, as the reference's ``flops_per_device``) and
     the collectives it issues, which ``roofline.collective_traffic``
     charges by 8-GPU node (``mesh.NODE_SIZE``): NVLink inside a node,
@@ -82,12 +84,6 @@ MESHES: Dict[str, Tuple[Tuple[int, ...], Tuple[str, ...]]] = {
     "2x16x16": PRODUCTION_MESHES[True],
 }
 NO_TRAFFIC = {"ici": 0.0, "dcn": 0.0, "by_op": {}, "n": 0}
-# What a serving cell's collective term at 256 or 512 devices charges: the
-# port gathers each weight, laid out by ``param_specs(..., "tp")``, whole at
-# its use, so the term is mostly all-gathers of the whole model per device.
-WEIGHT_GATHERS = ("charges the eager port's whole-weight all-gathers at each use (weights laid "
-                  "out by param_specs 'tp', gathered whole), not tensor parallelism on weight "
-                  "shards; not comparable to the reference's term (ROADMAP Queue 2 item 12)")
 
 
 # --------------------------------------------------------------------------
@@ -403,8 +399,6 @@ def run_cell(arch: str, shape: str, *, meshes: Sequence[str] = ("16x16",),
         }
         if on_mesh:  # the counts are one rank's share of the step on the mesh
             art.update(count_scope="per device", collectives=step.collectives)
-            if info["kind"] != "train":
-                art["collective_basis"] = WEIGHT_GATHERS
         arts[name] = art
         _write(art, out_dir)
         print(rl.summarize_artifact(art))

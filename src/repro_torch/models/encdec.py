@@ -19,7 +19,10 @@ it outside any kernel.
 On a mesh (serving under tp, ``sharding.set_mesh``) the decode state is
 laid out by ``decode_state_specs`` (the cross K/V ``xk`` and ``xv`` with
 their KV heads over 'model' where they divide it), and the decode step's
-cross-attention runs on each rank's rows and KV heads.
+cross-attention runs on each rank's rows and KV heads.  Every matmul
+contracts on its weight's 'model' shard (``layers``); the prefill gathers
+the encoder's output along its sequence once, for every cross-attention's
+K/V projections.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from .layers import (
     attn_init,
     cross_attn_apply,
     embed_rows,
+    kept_shards,
     mapped,
     mlp_apply,
     mlp_init,
@@ -172,6 +176,10 @@ class EncDecLM(nn.Module):
         caches (L, B, max_len, K, hd), zero past the prompt."""
         cfg = self.cfg
         B, S = tokens.shape
+        if isinstance(memory, DTensor):
+            # The encoder's output whole along its sequence on every rank,
+            # gathered once for every cross-attention's K/V projections.
+            memory = memory.redistribute(memory.device_mesh, kept_shards(memory, (0,)))
         state = self.decode_init(B, max_len or S, memory)
         ks, vs = state["kv"]
         x = embed_rows(self.embed, tokens)
@@ -224,7 +232,7 @@ class EncDecLM(nn.Module):
             o = mapped(self._cross_attend, q_p, (q_p, kv_p, kv_p), None, q, xk, xv)
         else:
             o = self._cross_attend(q, xk, xv)
-        return _project(o, p["wo"], 2)
+        return _project(o, p["wo"], 2, like=x)
 
     def _cross_attend(self, q: Tensor, xk: Tensor, xv: Tensor) -> Tensor:
         B, _, H, hd = q.shape

@@ -22,9 +22,23 @@ axis each rank attends its query shard against the full K/V
 
 The functions take DTensors as well as tensors (a model on a mesh).  The
 ops that contract (projections, attention, the embedding gather) run on
-each rank's local shard through ``local_map``, their weights gathered whole
-at use; elementwise ops and norms run as DTensor ops, and a plain tensor
-they make for a DTensor input (positions, masks) joins it replicated.
+each rank's local shard through ``local_map``; elementwise ops and norms
+run as DTensor ops, and a plain tensor they make for a DTensor input
+(positions, masks) joins it replicated.  A weight laid out by the tp specs
+(``sharding.param_specs(..., "tp")``: one dim over 'model', another over
+'data') contracts on its 'model' shard, the reference's tensor
+parallelism: a column-parallel weight (its output dim over 'model': wq,
+wk, wv, w_in, w_gate, the unembedding) gives each rank its shard of the
+output, the input gathered over 'model' where it arrives split there (the
+sequence-parallel all-gather); a row-parallel one (its input dim over
+'model': wo, w_out) gives each rank a partial sum, reduced over 'model'
+into the residual's layout (an all-reduce, or a reduce-scatter where the
+residual's sequence rides 'model').  The weight is gathered over its other
+axes only ('data': the reference's FSDP of the input dim).  The embedding
+looks its rows up on each rank's vocab shard and sums them over 'model'.
+A weight that 'model' does not split (the spec's fallback where a dim does
+not divide it), or splits together with the other axes (the fsdp policy's
+flat ZeRO-3 layout), is gathered whole at use.
 
 The decode step on a mesh (serving, the tp policy) runs on a decode state
 laid out by ``sharding.decode_state_specs``: each rank writes the new
@@ -109,10 +123,11 @@ def local_with_replicated(fn, x: DTensor, x_placements, *replicated: Tensor,
     """``fn(x_local, *replicated_local)`` on each rank: ``x`` laid out by
     ``x_placements``, every other input gathered whole (its gradient the
     partial sum of the ranks' that ``x_placements`` splits), the output
-    laid out as ``x`` unless ``out_placements`` says otherwise.  The
-    matmuls of the mesh path run so, on local shapes, as under the
-    reference's shard_map; only elementwise ops and norms run as DTensor
-    ops."""
+    laid out as ``x`` unless ``out_placements`` says otherwise: for
+    inputs that no tp spec splits over 'model' (the MoE's router, a weight
+    under the fsdp policy's ZeRO-3 layout, which is gathered whole at use).
+    A weight that the tp specs split over 'model' goes through
+    ``_project`` or ``embed_rows``."""
     mesh = x.device_mesh
     rep = [Replicate()] * mesh.ndim
     grad = partial_where_sharded(x_placements)
@@ -122,6 +137,29 @@ def local_with_replicated(fn, x: DTensor, x_placements, *replicated: Tensor,
         in_grad_placements=(x_placements,) + (grad,) * len(replicated),
         device_mesh=mesh, redistribute_inputs=True,
     )(x, *(replicated_like(t, x) for t in replicated))
+
+
+def model_dim(mesh) -> Optional[int]:
+    """The index of the mesh's 'model' dim, None where it has none."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return names.index("model") if "model" in names else None
+
+
+def tp_dim(w: Tensor) -> Optional[int]:
+    """The dim of weight ``w`` that the mesh's 'model' dim splits on its
+    own, as the tp specs lay a weight out; None for a plain tensor, a
+    weight that 'model' does not split, or one it splits together with
+    other mesh dims (the fsdp policy's flat ZeRO-3 split)."""
+    if not isinstance(w, DTensor):
+        return None
+    mi = model_dim(w.device_mesh)
+    if mi is None or not isinstance(w.placements[mi], Shard):
+        return None
+    d = w.placements[mi].dim
+    if any(isinstance(p, Shard) and p.dim == d
+           for j, p in enumerate(w.placements) if j != mi):
+        return None
+    return d
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
@@ -430,30 +468,81 @@ def attn_init(cfg: ModelConfig, generator: torch.Generator, dtype, device) -> Di
 
 
 def embed_rows(table: Tensor, tokens: Tensor) -> Tensor:
-    """``table[tokens]``; on a mesh each rank gathers its tokens' rows of
-    the table gathered whole."""
-    if isinstance(table, DTensor) or isinstance(tokens, DTensor):
-        tokens = replicated_like(tokens, table)
-        return local_with_replicated(lambda t, w: w[t], tokens,
-                                     kept_shards(tokens, range(tokens.dim())), table)
-    return table[tokens]
+    """``table[tokens]``.  On a mesh, where the table's vocab rides 'model'
+    (the tp specs) each rank looks its tokens up in its vocab shard (rows
+    of other shards zero) and the rows are summed over 'model', the table
+    gathered over its other axes only; otherwise each rank gathers its
+    tokens' rows of the table gathered whole."""
+    if not (isinstance(table, DTensor) or isinstance(tokens, DTensor)):
+        return table[tokens]
+    tokens = replicated_like(tokens, table)
+    table = replicated_like(table, tokens)
+    rows = kept_shards(tokens, range(tokens.dim()))
+    if tp_dim(table) != 0:
+        return local_with_replicated(lambda t, w: w[t], tokens, rows, table)
+    mesh = table.device_mesh
+    mi = model_dim(mesh)
+    rows[mi] = Replicate()
+    table_p = on_mesh(mesh, model=Shard(0))
+
+    def local(t, w):
+        v0 = mesh.get_local_rank(mi) * w.shape[0]
+        at = t - v0
+        mine = (at >= 0) & (at < w.shape[0])
+        return torch.where(mine[..., None], w[at.clamp(0, w.shape[0] - 1)], 0)
+
+    out_p = list(rows)
+    out_p[mi] = Partial()
+    out = mapped(local, out_p, (rows, table_p),
+                 (rows, on_mesh(mesh, partial_where_sharded(rows), model=Shard(0))),
+                 tokens, table)
+    return out.redistribute(mesh, rows)
 
 
-def _project(x: Tensor, w: Tensor, n_in: int = 1) -> Tensor:
+def _project(x: Tensor, w: Tensor, n_in: int = 1, like: Optional[Tensor] = None) -> Tensor:
     """Contracts x's last ``n_in`` dims with w's first ``n_in`` dims (the
     einsums "bsd,dhe->bshe", "bshe,hed->bsd", "bsd,df->bsf") as one matmul
     over flattened dims: the same sums with far less host work per call.
-    On a mesh the weight is gathered at use (ZeRO-3) and each rank
-    contracts its rows of x, the contracted dims gathered."""
+    On a mesh each rank contracts its rows of x (the contracted dims
+    gathered) with w as the module's docstring says: on its 'model' shard
+    where the tp specs split w there, the partial sums of a row-parallel w
+    reduced into ``like``'s layout (by default replicated over 'model');
+    else with w gathered whole."""
     if isinstance(x, DTensor) or isinstance(w, DTensor):
-        if not isinstance(x, DTensor):
-            x = replicated_like(x, w)
-        lead = range(x.dim() - n_in)
-        return local_with_replicated(functools.partial(_project, n_in=n_in), x,
-                                     kept_shards(x, lead), w)
+        return _project_mesh(replicated_like(x, w), replicated_like(w, x), n_in, like)
     lead, k_dims = x.shape[: x.dim() - n_in], w.shape[:n_in]
     out = x.reshape(*lead, -1) @ w.reshape(k_dims.numel(), -1)
     return out.reshape(*lead, *w.shape[n_in:])
+
+
+def _project_mesh(x: DTensor, w: DTensor, n_in: int, like: Optional[Tensor]) -> DTensor:
+    mesh = x.device_mesh
+    lead = x.dim() - n_in
+    mi, d = model_dim(mesh), tp_dim(w)
+    x_p = kept_shards(x, range(lead))
+    w_p = [Replicate()] * mesh.ndim
+    out_p, x_grad = list(x_p), list(x_p)
+    row = d is not None and d < n_in
+    if d is not None:
+        w_p[mi] = Shard(d)
+        if row:  # each rank contracts its slice of the input dim: partial sums
+            x_p[mi] = x_grad[mi] = Shard(lead + d)
+            out_p[mi] = Partial()
+        else:  # each rank computes its shard of the output dim
+            x_p[mi], x_grad[mi] = Replicate(), Partial()
+            out_p[mi] = Shard(lead + d - n_in)
+    # A weight's gradient keeps its 'model' shard; it is a partial sum over
+    # the mesh dims that split x's rows.
+    w_grad = [wp if isinstance(wp, Shard) else Partial() if isinstance(xp, Shard)
+              else Replicate() for xp, wp in zip(x_p, w_p)]
+    out = local_map(functools.partial(_project, n_in=n_in), out_placements=out_p,
+                    in_placements=(x_p, w_p), in_grad_placements=(x_grad, w_grad),
+                    device_mesh=mesh, redistribute_inputs=True)(x, w)
+    if not row:
+        return out
+    target = (list(like.placements) if isinstance(like, DTensor)
+              else [Replicate() if isinstance(p, Partial) else p for p in out_p])
+    return out.redistribute(mesh, target)
 
 
 def attn_qkv(cfg: ModelConfig, p, x: Tensor, positions: Tensor):
@@ -488,7 +577,7 @@ def attn_apply(
         positions = torch.arange(S, device=x.device, dtype=torch.int32).expand(B, S)
     q, k, v = attn_qkv(cfg, p, x, positions)
     out = attention(q, k, v, cfg=cfg, causal=causal, is_local=is_local)
-    y = _project(out, p["wo"], 2)
+    y = _project(out, p["wo"], 2, like=x)
     if return_kv:
         return y, (k, v)
     return y
@@ -505,7 +594,7 @@ def cross_attn_apply(cfg: ModelConfig, p, x: Tensor, memory: Tensor) -> Tensor:
     k = _project(memory, p["wk"])
     v = _project(memory, p["wv"])
     out = attention(q, k, v, cfg=cfg, causal=False)
-    return _project(out, p["wo"], 2)
+    return _project(out, p["wo"], 2, like=x)
 
 
 def attn_decode_apply(
@@ -530,7 +619,7 @@ def attn_decode_apply(
         out = _decode_attention_mesh(cfg, q, k_cache, v_cache, pos + 1, is_local)
     else:
         out = _decode_attention(cfg, q, k_cache, v_cache, pos + 1, is_local)
-    y = _project(out, p["wo"], 2)
+    y = _project(out, p["wo"], 2, like=x)
     return y, (k_cache, v_cache)
 
 
@@ -646,4 +735,4 @@ def mlp_apply(cfg: ModelConfig, p, x: Tensor) -> Tensor:
         h = act(_project(x, p["w_gate"])) * h
     else:
         h = act(h)
-    return _project(h, p["w_out"])
+    return _project(h, p["w_out"], like=x)

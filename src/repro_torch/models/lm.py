@@ -20,6 +20,8 @@ Serving on a mesh: with the weights placed by ``param_specs(..., "tp")``
 and under ``sharding.set_mesh``, ``prefill`` and ``decode_step`` run on
 DTensors and keep the decode state laid out by ``decode_state_specs``
 (born so in ``decode_init``); each cache write lands on each rank's shard.
+Every matmul contracts on its weight's 'model' shard (``layers``), and the
+logits come out split over the vocabulary, which ``Engine`` gathers whole.
 """
 
 from __future__ import annotations
@@ -341,7 +343,9 @@ class LM(nn.Module):
         return x, {}
 
     def logits(self, hidden: Tensor) -> Tensor:
-        """Einsum in the param dtype, then f32 (and the final softcap)."""
+        """Einsum in the param dtype, then f32 (and the final softcap).  On a
+        mesh each rank computes its shard of the vocabulary where the tp
+        specs split the unembedding (the tied table's rows) over 'model'."""
         w = self.unembed if not self.cfg.tie_embeddings else self.embed.T
         out = _project(hidden, w) if isinstance(hidden, DTensor) else torch.matmul(hidden, w)
         out = out.float()

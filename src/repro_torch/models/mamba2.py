@@ -15,33 +15,37 @@ paths runs it follows ``cfg.attn_impl``, as attention does
 Decode is the O(1)-per-token recurrent form over that state plus a rolling
 window of the last W-1 conv inputs.
 
-On a mesh (x a DTensor: the tp training policy of the SSM and hybrid
-families) x keeps its split of the batch over ('pod','data') and its
-sequence is gathered (the SSD scan runs over the whole sequence, and the
-causal conv reaches across a sequence shard's edge), and the heads ride
-'model': in_proj's output dim concatenates z, x, B, C and dt, so its
-'model' slice would mix pieces, and instead each rank takes its heads'
-columns of z, x and dt (and B and C whole: one group) from the weight
-gathered at use (``_heads``), and runs the conv, the SSD and the gate on
-them.  The gated norm's mean over the whole d_inner is reduced over
-'model'; out_proj takes each rank's rows of d_inner, a partial sum over
-'model'.  Its collectives a layer: the all-gather of x's sequence over
-'model' and of each mixer weight over the axes its spec splits; the norm's
-all-reduce; the output's reduce-scatter back into x's sequence shards; in
-the backward the gradients' reductions to the weights' layouts and to x's.
-Where the heads do not divide 'model', the mixer runs whole on each rank's
-rows.  Prefill's conv tail (the last W-1 pre-conv activations) is the
-projection of the last W-1 positions onto in_proj's x, B and C columns,
-on each rank's rows.
+On a mesh (x a DTensor: prefill and decode when serving, and the tp
+training policy of the SSM and hybrid families) x keeps its split of the
+batch over ('pod','data') and its sequence is gathered (the SSD scan runs
+over the whole sequence, and the causal conv reaches across a sequence
+shard's edge), and the heads ride 'model'.  in_proj's output dim
+concatenates z, x, B, C and dt; its tp spec splits it evenly over 'model',
+which does not follow the heads.  So each rank projects its token rows
+onto its shard of in_proj's columns (column-parallel: the weight is never
+gathered over 'model'), and one all-to-all over 'model' (``_Columns``)
+hands each rank its heads' z and dt and its slice of the conv channels
+[x, B, C] as the conv weight's spec splits them evenly; each rank runs the
+depthwise conv on its channels with its shard of the conv weight, and a
+second all-to-all hands it its heads' x and B and C whole (one group).  It
+runs the SSD and the gate on its heads.  The gated norm's mean over the
+whole d_inner is reduced over 'model'; out_proj takes each rank's rows of
+d_inner (row-parallel), a partial sum over 'model' reduced into x's
+layout.  The two all-to-alls move activations (tokens x in_proj's
+columns), not weights; in the backward they carry the gradients back.
+Prefill's conv tail (the last W-1 pre-conv activations) is each rank's
+channels of the conv's input, laid out as the decode state's conv window.
 
-The decode step on a mesh (serving) splits the heads over 'model' in the
-same way: each rank projects its token onto its heads' z and dt columns and
-onto all of x, B and C, updates its heads' SSM state (its shard of the
-state, laid out by ``decode_state_specs``), and the gated norm and
-out_proj run as in prefill.  The conv window's spec splits its channels
-evenly over 'model', which does not follow the heads: each rank gathers
-the window at use, convolves its heads' channels and B and C, and keeps
-its spec's columns of the new window.
+The decode step on a mesh (serving) runs the same way on one token: the
+conv window's spec splits its channels as the conv weight does, so each
+rank keeps its shard of the window and never gathers it, and updates its
+heads' SSM state (its shard, laid out by ``decode_state_specs``).
+
+Where 'model' has one rank, or does not divide the heads, the mixer runs
+whole on each rank's rows, its weights gathered at use (over 'data'; a
+'model' of one rank moves nothing), which the tp specs allow only where
+they do not split in_proj and the conv weight over a 'model' of several
+ranks; else it raises.
 """
 
 from __future__ import annotations
@@ -50,13 +54,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops as kops
-from . import sharding
 from .config import ModelConfig
 from .layers import (_kernel_impl, _normal, _project, kept_shards, local_with_replicated, mapped,
-                     on_mesh, partial_where_sharded, rms_norm)
+                     model_dim, on_mesh, partial_where_sharded, rms_norm, tp_dim)
 
 Tensor = torch.Tensor
 
@@ -164,16 +168,25 @@ def _conv1d(xBC: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return out + b
 
 
-def _mixer(cfg: ModelConfig, p, x: Tensor, h0: Optional[Tensor], nh: int):
-    """in_proj, the causal conv, the SSD and the gate over ``nh`` heads
-    (``p`` holds their columns): (y * silu(z) (B, S, nh * hd) in x's type,
-    the final state, the pre-conv x, B, C)."""
+def _mixer(cfg: ModelConfig, p, x: Tensor, h0: Optional[Tensor], nh: int,
+           cols: Optional["_Columns"] = None):
+    """in_proj, the causal conv, the SSD and the gate over ``nh`` heads:
+    (y * silu(z) (B, S, nh * hd) in x's type, the final state, the pre-conv
+    x, B, C).  With ``cols`` (on a mesh) ``p`` holds this rank's shards and
+    ``cols`` moves the projection's columns between the ranks' layouts."""
     B, S, D = x.shape
     N, hd = cfg.ssm_state, cfg.ssm_head_dim
     di = nh * hd
-    z, xBC_pre, dt = torch.split(_project(x, p["in_proj"]), [di, di + 2 * N, nh], dim=-1)
+    zxbcdt = _project(x, p["in_proj"])
+    if cols is None:
+        z, xBC_pre, dt = torch.split(zxbcdt, [di, di + 2 * N, nh], dim=-1)
+    else:
+        z, xBC_pre, dt = cols.to_mixer(zxbcdt)
     xBC = F.silu(_conv1d(xBC_pre, p["conv_w"], p["conv_b"]))
-    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    if cols is None:
+        xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    else:
+        xs, Bm, Cm = cols.to_heads(xBC)
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, nh)
     A = -torch.exp(p["A_log"])  # (nh,)
     xh = xs.reshape(B, S, nh, hd)
@@ -185,29 +198,127 @@ def _mixer(cfg: ModelConfig, p, x: Tensor, h0: Optional[Tensor], nh: int):
     return y * F.silu(z), h, xBC_pre
 
 
-def _heads(cfg: ModelConfig, p, m: int, k: int, *, whole_xbc: bool = False):
-    """The mixer's weights of heads [m k, (m + 1) k): their columns of z, x
-    and dt in in_proj, of x in the conv, and B and C whole (one group).
-    With ``whole_xbc`` in_proj's columns of x, B and C are all of them (the
-    decode step keeps every channel's conv window)."""
-    di, N, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
-    dev = p["in_proj"].device
+def _pieces(have, want) -> list:
+    """The (start, stop) ranges of ``want`` (sorted, disjoint) inside the
+    one range ``have``, adjacent ones joined."""
+    out = []
+    for a, b in want:
+        lo, hi = max(a, have[0]), min(b, have[1])
+        if lo < hi and out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        elif lo < hi:
+            out.append((lo, hi))
+    return out
 
-    def span(start, n):
-        return torch.arange(start, start + n, device=dev)
 
-    dl = k * hd
-    xs = ([span(di, di + 2 * N)] if whole_xbc
-          else [span(di + m * dl, dl), span(2 * di, 2 * N)])
-    cols = torch.cat([span(m * dl, dl), *xs, span(2 * di + 2 * N + m * k, k)])
-    conv = torch.cat([span(m * dl, dl), span(di, 2 * N)])
-    heads = slice(m * k, (m + 1) * k)
-    return {"in_proj": p["in_proj"][:, cols], "conv_w": p["conv_w"][:, conv],
-            "conv_b": p["conv_b"][conv], "A_log": p["A_log"][heads], "D": p["D"][heads],
-            "dt_bias": p["dt_bias"][heads]}
+def _regroup(t: Tensor, src, dst, me: int, group) -> Tensor:
+    """The columns ``dst[me]`` (sorted, disjoint (start, stop) ranges) of a
+    column axis, in order, from ``t``, whose last dim holds this rank's
+    columns ``src[me]``: rank r holds the one range ``src[r]``, each rank's
+    after the last rank's.  One all-to-all over ``group`` (a (mesh, dim)
+    pair) where a rank needs columns of another (the result contiguous: the
+    SSD kernel takes unit-stride rows); else local slices."""
+    lo0 = src[me][0]
+
+    def local(ranges):
+        return [t[..., a - lo0:b - lo0] for a, b in ranges]
+
+    mine = _pieces(src[me], dst[me])
+    if sum(b - a for a, b in mine) == sum(b - a for a, b in dst[me]):
+        parts = local(mine)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    send = [_pieces(src[me], want) for want in dst]
+    recv = [_pieces(have, dst[me]) for have in src]
+    lead = t.dim() - 1
+    flat = torch.cat([p for ranges in send for p in local(ranges)], dim=-1)
+    flat = flat.movedim(lead, 0).contiguous()
+    a2a = (funcol.all_to_all_single_autograd if torch.is_grad_enabled() and t.requires_grad
+           else funcol.all_to_all_single)
+    out = a2a(flat, [sum(b - a for a, b in r) for r in recv],
+              [sum(b - a for a, b in r) for r in send], group)
+    return funcol.wait_tensor(out).movedim(0, lead).contiguous()
+
+
+class _Columns:
+    """The layouts of in_proj's output columns [z (di), x (di), B (N), C
+    (N), dt (nh)] on the M ranks of 'model' (this one ``me``): in_proj's
+    shard (its E columns split evenly, or whole where its spec keeps them
+    whole), the mixer's (rank r's heads' z and dt, and its slice of the
+    conv channels [x, B, C] as the conv weight's spec splits them: evenly,
+    or whole), and the heads' (rank r's heads' x, and B and C whole)."""
+
+    def __init__(self, cfg: ModelConfig, M: int, me: int, e_split: bool, c_split: bool,
+                 group):
+        di, N, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+        E, C, k = 2 * di + 2 * N + nh, di + 2 * N, nh // M
+        dl = k * hd
+        self.me, self.group, self.k, self.dl, self.N = me, group, k, dl, N
+        self.proj = [(r * E // M, (r + 1) * E // M) if e_split else (0, E) for r in range(M)]
+        self.conv = [(r * C // M, (r + 1) * C // M) if c_split else (0, C) for r in range(M)]
+        self.mixer = [[(r * dl, (r + 1) * dl), (di + self.conv[r][0], di + self.conv[r][1]),
+                       (2 * di + 2 * N + r * k, 2 * di + 2 * N + (r + 1) * k)] for r in range(M)]
+        self.heads = [[(r * dl, (r + 1) * dl), (di, C)] for r in range(M)]
+
+    def conv_channels(self) -> slice:
+        """This rank's conv channels: the slice of the conv weight's and
+        bias's last dim."""
+        return slice(*self.conv[self.me])
+
+    def to_mixer(self, zx: Tensor):
+        """in_proj's output (this rank's columns) -> (z, x B C, dt) of the
+        mixer's layout."""
+        got = _regroup(zx, self.proj, self.mixer, self.me, self.group)
+        n = self.conv[self.me][1] - self.conv[self.me][0]
+        return torch.split(got, [self.dl, n, self.k], dim=-1)
+
+    def to_heads(self, xbc: Tensor):
+        """The conv's output (this rank's channels) -> (x, B, C) of its
+        heads."""
+        got = _regroup(xbc, self.conv, self.heads, self.me, self.group)
+        return torch.split(got, [self.dl, self.N, self.N], dim=-1)
 
 
 _MIXER = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias")
+
+
+class _MeshMixer:
+    """The mixer's layout on a mesh for x's ``rows`` (its batch split): the
+    weights' placements as each rank uses them (in_proj and the conv weight
+    on their 'model' shards, the others whole), their gradients', and each
+    rank's ``_Columns`` and slices of the replicated weights."""
+
+    def __init__(self, cfg: ModelConfig, p, mesh, rows):
+        self.cfg, self.mesh = cfg, mesh
+        self.mi = model_dim(mesh)
+        self.M = 1 if self.mi is None else mesh.size(self.mi)
+        split = {n: tp_dim(p[n]) == 1 for n in ("in_proj", "conv_w")}
+        nh = cfg.n_ssm_heads
+        self.place = None  # the mixer whole on each rank
+        if nh % self.M and any(split.values()):
+            raise NotImplementedError(
+                f"Mamba-2 on a mesh: 'model' ({self.M}) does not divide the {nh} heads, and "
+                "the tp specs split in_proj or the conv weight over it")
+        if nh % self.M or self.M == 1:
+            return
+        self.split = split
+        grads = partial_where_sharded(rows)
+        self.place = tuple(on_mesh(mesh, model=Shard(1)) if split.get(n) else on_mesh(mesh)
+                           for n in _MIXER)
+        self.grads = tuple(on_mesh(mesh, grads, model=Shard(1) if split.get(n) else Partial())
+                           for n in _MIXER)
+
+    def local(self, ws):
+        """(this rank's ``_Columns``, its mixer weights by name: its shards
+        of in_proj and the conv weight, its heads' and channels' slices of
+        the others)."""
+        me = 0 if self.mi is None else self.mesh.get_local_rank(self.mi)
+        cols = _Columns(self.cfg, self.M, me, self.split["in_proj"], self.split["conv_w"],
+                        (self.mesh, self.mi))
+        w = dict(zip(_MIXER, ws))
+        heads = slice(me * cols.k, (me + 1) * cols.k)
+        w.update(conv_b=w["conv_b"][cols.conv_channels()], A_log=w["A_log"][heads],
+                 D=w["D"][heads], dt_bias=w["dt_bias"][heads])
+        return cols, w
 
 
 def mamba_apply(
@@ -235,58 +346,47 @@ def mamba_apply(
 
 
 def _mamba_apply_mesh(cfg: ModelConfig, p, x: DTensor, h0, return_conv_tail: bool):
+    if h0 is not None:
+        raise NotImplementedError("mamba_apply on a mesh starts from a zero state (h0=None)")
     mesh = x.device_mesh
     rows = kept_shards(x, (0,))  # the batch's split kept, the sequence gathered
-    M = sharding.axis_sizes(mesh).get("model", 1)
-    nh = cfg.n_ssm_heads
-    if M == 1 or nh % M or h0 is not None:
-        # The mixer whole on each rank's rows.
+    mm = _MeshMixer(cfg, p, mesh, rows)
+    if mm.place is None:
+        # The mixer whole on each rank's rows (nothing split over 'model').
         names = list(p)
 
         def whole(xl, *ws):
-            return mamba_apply(cfg, dict(zip(names, ws)), xl, h0,
+            return mamba_apply(cfg, dict(zip(names, ws)), xl,
                                return_conv_tail=return_conv_tail)
 
         return local_with_replicated(whole, x, rows, *(p[n] for n in names),
                                      out_placements=(rows,) * (3 if return_conv_tail else 2))
     # The heads over 'model': each rank runs its nh / M heads.  A rank's
-    # heads use all of x and of B and C: their gradients are partial sums
-    # over 'model' (and the weights' over the batch's axes).
-    k = nh // M
-    weights_grad = on_mesh(mesh, partial_where_sharded(rows), model=Partial())
+    # heads use all of x and of B and C: x's gradient is a partial sum over
+    # 'model'.
+    W, S = cfg.ssm_conv_width, x.shape[1]
 
     def heads(xl, *ws):
-        sl = _heads(cfg, dict(zip(_MIXER, ws)), mesh["model"].get_local_rank(), k)
-        g, h, _ = _mixer(cfg, sl, xl, None, k)
-        return g, h
+        cols, w = mm.local(ws)
+        g, h, xbc_pre = _mixer(cfg, w, xl, None, cols.k, cols)
+        return g, h, xbc_pre[:, S - (W - 1):]
 
-    g, h = mapped(heads, (on_mesh(mesh, rows, model=Shard(2)), on_mesh(mesh, rows, model=Shard(1))),
-                  (rows,) + (on_mesh(mesh),) * len(_MIXER),
-                  (on_mesh(mesh, rows, model=Partial()),) + (weights_grad,) * len(_MIXER),
-                  x, *(p[n] for n in _MIXER))
-    out = _gated_out(p, g, x, rows)
-    if not return_conv_tail:
-        return out, h
-    S, W, di, N = x.shape[1], cfg.ssm_conv_width, cfg.d_inner, cfg.ssm_state
-    tail = local_with_replicated(
-        lambda xl, w: _project(xl[:, S - (W - 1):], w[:, di:2 * di + 2 * N]), x, rows,
-        p["in_proj"])
-    return out, h, tail
+    tail_p = on_mesh(mesh, rows, model=Shard(2) if mm.split["conv_w"] else Replicate())
+    g, h, tail = mapped(heads, (on_mesh(mesh, rows, model=Shard(2)),
+                                on_mesh(mesh, rows, model=Shard(1)), tail_p),
+                        (rows,) + mm.place,
+                        (on_mesh(mesh, rows, model=Partial()),) + mm.grads,
+                        x, *(p[n] for n in _MIXER))
+    out = _gated_out(p, g, x)
+    return (out, h, tail) if return_conv_tail else (out, h)
 
 
-def _gated_out(p, g: DTensor, x: DTensor, rows) -> DTensor:
+def _gated_out(p, g: DTensor, x: DTensor) -> DTensor:
     """The gated norm of the heads' outputs ``g`` (their d_inner over
     'model') over the whole d_inner (its mean reduced over 'model'), then
     out_proj on each rank's rows of it: a partial sum over 'model', reduced
     into x's layout."""
-    mesh = x.device_mesh
-    y = rms_norm(g, p["norm"])
-    y_p = on_mesh(mesh, rows, model=Shard(2))
-    out = mapped(_project, on_mesh(mesh, rows, model=Partial()),
-                 (y_p, on_mesh(mesh, model=Shard(0))),
-                 (y_p, on_mesh(mesh, partial_where_sharded(rows), model=Shard(0))),
-                 y, p["out_proj"])
-    return out.to(x.dtype).redistribute(mesh, x.placements)
+    return _project(rms_norm(g, p["norm"]), p["out_proj"], like=x).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -334,12 +434,10 @@ def mamba_decode_step(
 def _mamba_decode_mesh(cfg: ModelConfig, p, x: DTensor, state: Dict[str, Tensor]):
     mesh = x.device_mesh
     rows = kept_shards(x, (0,))
-    M = sharding.axis_sizes(mesh).get("model", 1)
-    nh, hd, di, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_inner, cfg.ssm_state
     h, conv = state["h"], state["conv"]
-    conv_p = list(conv.placements)
-    whole_conv = [Replicate() if isinstance(pl, Shard) and pl.dim == 2 else pl for pl in conv_p]
-    if M == 1 or nh % M:
+    h_p, conv_p = list(h.placements), list(conv.placements)
+    mm = _MeshMixer(cfg, p, mesh, rows)
+    if mm.place is None:
         # The step whole on each rank's rows; the new state is then laid
         # out as ``state`` (each rank keeps its shard).
         names = list(p)
@@ -353,38 +451,32 @@ def _mamba_decode_mesh(cfg: ModelConfig, p, x: DTensor, state: Dict[str, Tensor]
             whole, (rows, h_rows, conv_rows),
             (rows, h_rows, conv_rows) + (on_mesh(mesh),) * len(names), None,
             x, h, conv, *(p[n] for n in names))
-        return out, {"h": h_new.redistribute(mesh, h.placements),
+        return out, {"h": h_new.redistribute(mesh, h_p),
                      "conv": conv_new.redistribute(mesh, conv_p)}
-    k = nh // M
-    C = di + 2 * N
-    conv_cols = conv.to_local().shape[-1]
+    hd = cfg.ssm_head_dim
 
     def heads(xl, hl, cl, *ws):
-        m = mesh["model"].get_local_rank()
-        dl = k * hd
-        # z and dt of this rank's heads, and all of x, B and C (the window
-        # keeps every channel); the conv of its heads' x and of B and C.
-        sl = _heads(cfg, dict(zip(_MIXER, ws)), m, k, whole_xbc=True)
-        z, xBC, dt = torch.split(_project(xl, sl["in_proj"])[:, 0], [dl, C, k], dim=-1)
-        window = torch.cat([cl, xBC[:, None, :]], dim=1)  # (B, W, C)
-        mine = torch.cat([torch.arange(m * dl, (m + 1) * dl, device=xl.device),
-                          torch.arange(di, C, device=xl.device)])
-        conv_out = torch.einsum("bwc,wc->bc", window[:, :, mine], sl["conv_w"]) + sl["conv_b"]
-        xs, Bm, Cm = torch.split(F.silu(conv_out), [dl, N, N], dim=-1)
-        dt = F.softplus(dt.float() + sl["dt_bias"])  # (B, k)
-        dA = torch.exp(dt * -torch.exp(sl["A_log"]))
+        cols, w = mm.local(ws)
+        k, dl = cols.k, cols.dl
+        # z and dt of this rank's heads and its channels of x, B and C; the
+        # conv of those channels over its shard of the window; then its
+        # heads' x, and B and C whole.
+        z, xbc, dt = cols.to_mixer(_project(xl, w["in_proj"])[:, 0])
+        window = torch.cat([cl, xbc[:, None, :]], dim=1)  # (B, W, channels)
+        conv_out = torch.einsum("bwc,wc->bc", window, w["conv_w"]) + w["conv_b"]
+        xs, Bm, Cm = cols.to_heads(F.silu(conv_out))
+        dt = F.softplus(dt.float() + w["dt_bias"])  # (B, k)
+        dA = torch.exp(dt * -torch.exp(w["A_log"]))
         xh = xs.reshape(-1, k, hd)
         dBx = ((dt[..., None].to(xh.dtype) * xh)[..., None] * Bm[:, None, None, :]).float()
         h_new = hl.float() * dA[..., None, None] + dBx
         y = torch.matmul(h_new, Cm.float()[:, None, :, None])[..., 0]  # (B, k, hd)
-        y = y.to(xl.dtype) + xh * sl["D"][None, :, None].to(xh.dtype)
+        y = y.to(xl.dtype) + xh * w["D"][None, :, None].to(xh.dtype)
         g = (y.reshape(-1, dl) * F.silu(z))[:, None, :]
-        c0 = m * conv_cols if conv_cols < C else 0
-        return g, h_new, window[:, 1:, c0:c0 + conv_cols]
+        return g, h_new, window[:, 1:]
 
-    h_p = list(h.placements)
     g, h_new, conv_new = mapped(
         heads, (on_mesh(mesh, rows, model=Shard(2)), h_p, conv_p),
-        (rows, h_p, whole_conv) + (on_mesh(mesh),) * len(_MIXER), None,
+        (rows, h_p, conv_p) + mm.place, None,
         x, h, conv, *(p[n] for n in _MIXER))
-    return _gated_out(p, g, x, rows), {"h": h_new, "conv": conv_new}
+    return _gated_out(p, g, x), {"h": h_new, "conv": conv_new}

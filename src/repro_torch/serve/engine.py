@@ -27,9 +27,9 @@ each tensor's mesh and placements), the decode state laid out by
 between replays, and the sampled tokens laid out by ``batch_spec`` again
 and copied shard by shard into the step's token buffer.  Every rank
 samples the same tokens (temperature sampling: from generators seeded
-alike) and replays the same steps in the same order.  The captured
-collectives have run on one rank only: serve a mesh of several ranks with
-``cuda_graph=False`` until they have run on several.
+alike) and replays the same steps in the same order.  On four cards of one
+host (``tools/tp_serve.py``) the captured steps, NCCL collectives inside,
+give the tokens and logits of the eager steps bit for bit.
 """
 
 from __future__ import annotations
@@ -94,12 +94,8 @@ class Engine:
     replaces it, and pays an eager prefill and a capture again), and one
     decode step for each layout of the decode state (batch size,
     ``max_len``; for the encoder-decoder the encoder's length), each with
-    a whole decode state at ``max_len``.
-
-    On a mesh of more than one rank the captured steps hold NCCL
-    collectives, which have run captured on one rank only; until a run on
-    several cards has held them to the eager steps, serve such a mesh with
-    ``cuda_graph=False``."""
+    a whole decode state at ``max_len``.  On a mesh every rank holds its
+    own captured steps, their NCCL collectives inside."""
 
     def __init__(
         self,

@@ -30,11 +30,12 @@ length).
   replay zeroes them past the prompt again) is copied by the decode step
   into its own buffers, so a prefill's outputs are never written by a
   decode step.
-* On a mesh: every collective of the step (``decode_merge``'s all-reduces,
-  the whole-weight gathers of ``local_with_replicated``, Mamba-2's conv
-  window) is waited on inside it, so the capture joins NCCL's stream; every
-  rank captures and replays the same steps in the same order, so the
-  captured collectives stay matched.  Gathering the logits whole
+* On a mesh: every collective of the step (the row-parallel projections'
+  reductions over 'model', the weights' gathers over 'data', Mamba-2's
+  all-to-alls, ``decode_merge``'s all-reduces) is waited on inside it, so
+  the capture joins NCCL's stream; every rank captures and replays the
+  same steps in the same order, so the captured collectives stay matched.
+  Gathering the logits whole
   (``sharding.whole``) runs between replays, in ``Engine.generate``.
 * Launch counts: ``ops.LAUNCHES`` / ``LAUNCH_SHAPES`` count the wrappers'
   Python calls.  A capture leaves them as they were, and every replay adds

@@ -201,14 +201,22 @@ def test_run_cell_writes_artifacts(tmp_path):
     assert many["useful_flops_ratio"] == many["model_flops"] / (256 * many["step_flops"])
     assert one["n_devices"] == 1 and one["collective"]["n"] == 0
     # The decode step runs on the fake world of 256: its collectives (the
-    # weights gathered at use, the gated norm's all-reduce) by 8-GPU node.
+    # weights gathered over 'data' at use, the activations' all-to-alls and
+    # all-reduces over 'model') by 8-GPU node.
     assert many["n_devices"] == 256 and many["collective"]["n"] > 0
     assert many["collective"]["dcn"] + many["collective"]["ici"] > 0
     assert many["count_scope"] == "per device" and many["collectives"]
     assert "collective_note" not in many
-    # The term charges the weights' whole gathers at use, and says so.
-    assert "whole-weight all-gathers" in many["collective_basis"]
-    assert "collective_basis" not in one
+    # The serving term is of tensor parallelism on weight shards: no weight
+    # is gathered over a 'model' group (ranks 0-15 of rank 0's), so no
+    # all-gather there carries more than an activation (mamba2's largest
+    # weight is 2560 x 10576 bf16; one in_proj shard over 'model' is 1/16
+    # of it), and no basis note qualifies the term.
+    assert "collective_basis" not in many and "collective_basis" not in one
+    model_group = [list(range(16))]
+    over_model = [c for c in many["collectives"]
+                  if c["op"] == "all-gather" and c["explicit_groups"] == model_group]
+    assert all(c["result_bytes"] < 2560 * 10576 * 2 // 16 for c in over_model), over_model
     assert many["bytes_per_device"]["total"] < one["bytes_per_device"]["total"]
     assert one["fits_hbm80g"] == (one["bytes_per_device"]["total"] < mesh.HBM_BYTES)
     assert "N=not measured" not in roofline.summarize_artifact(many)
