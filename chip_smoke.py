@@ -164,6 +164,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1914,17 +1915,18 @@ ELASTIC = dict(pods=("pod0", "pod1", "pod2"), commit_every=5, checkpoint_every=1
 # in simulated ms (the JAX controller through this schedule reads 1.0 each).
 ACTIVATION_MS_MAX = 5.0
 # A checkpoint holds the f32 masters, m and v: 12 B a param, 3.2512 B params
-# at 8 layers (TRAIN's reckoning) = 39.01 GB on disk.  checkpoint.save keeps
-# every leaf on the host while np.savez writes the shard, then reads the
-# file back whole to hash it; restore reads it whole to hash it, then
-# np.load's it: two copies on the host either way, 78.0 GB.  The H100
+# at 8 layers (TRAIN's reckoning) = 39.01 GB on disk.  checkpoint.save
+# takes the leaves one at a time (a leaf's host copy, written as its npz
+# member and hashed as it goes to the file, freed before the next) and
+# restore hashes the file in 64 MiB chunks, then reads member by member:
+# the host holds one leaf either way.  The largest is a stacked MLP weight,
+# 8 x 5120 x 13824 x 4 B = 2.265 GB (the embedding 2.055 GB).  The H100
 # machine has 105.9 GB of memory (MemTotal) and 75 GB free on its root file
 # system, 9p, which keeps no page cache in the guest (`df`, `free` and
-# /proc/meminfo read there): 78.0 GB + the process's own few GB fit, so the
-# checkpoint runs at the 8-layer cut.  The
-# phase checks disk and memory before any work and raises when either is
-# short: the shard plus 5%, and two copies plus HOST_HEADROOM_BYTES.
-CKPT_BYTES_PER_PARAM, CKPT_HOST_COPIES, HOST_HEADROOM_BYTES = 12, 2, 8e9
+# /proc/meminfo read there).  The phase checks disk and memory before any
+# work and raises when either is short: the shard plus 5%, and one leaf
+# plus HOST_HEADROOM_BYTES (the process's own few GB).
+CKPT_BYTES_PER_PARAM, CKPT_HOST_LEAVES, HOST_HEADROOM_BYTES = 12, 1, 8e9
 # The first step after the restore reruns step 11 on the same masters (the
 # sums gate: bit for bit) and the same batch (a function of the step): its
 # forward has no atomics (GEMMs, elementwise passes, reductions in a fixed
@@ -1949,18 +1951,59 @@ def mem_available_bytes() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def elastic_preflight(nbytes: int, directory: str) -> dict:
+def largest_leaf_bytes(cfg) -> int:
+    """The largest f32 master of ``cfg``'s model (a checkpoint's largest
+    leaf), from its shapes on meta."""
+    import torch
+    from repro_torch.models import get_model
+
+    model = get_model(cfg).init(torch.Generator(), device="meta")
+    return 4 * max(p.numel() for p in model.parameters())
+
+
+def elastic_preflight(nbytes: int, leaf_bytes: int, directory: str) -> dict:
     """Raises unless the disk under ``directory`` takes one checkpoint of
-    ``nbytes`` and the host's memory two copies of it."""
+    ``nbytes`` and the host's memory ``CKPT_HOST_LEAVES`` leaves of
+    ``leaf_bytes`` and the headroom."""
     import shutil
 
     disk, mem = shutil.disk_usage(directory).free, mem_available_bytes()
-    need_disk, need_mem = 1.05 * nbytes, CKPT_HOST_COPIES * nbytes + HOST_HEADROOM_BYTES
-    row = dict(checkpoint_gb=nbytes / 1e9, disk_free_gb=disk / 1e9, need_disk_gb=need_disk / 1e9,
+    need_disk, need_mem = 1.05 * nbytes, CKPT_HOST_LEAVES * leaf_bytes + HOST_HEADROOM_BYTES
+    row = dict(checkpoint_gb=nbytes / 1e9, largest_leaf_gb=leaf_bytes / 1e9,
+               disk_free_gb=disk / 1e9, need_disk_gb=need_disk / 1e9,
                mem_available_gb=mem / 1e9, need_mem_gb=need_mem / 1e9)
     if disk < need_disk or mem < need_mem:
         raise AssertionError(f"elastic: no room for the checkpoint round-trip: {json.dumps(row)}")
     return row
+
+
+class RssPeak:
+    """The process's resident set, sampled every ``period`` s on a thread
+    while the ``with`` block runs: ``before`` and ``peak`` in bytes."""
+
+    def __init__(self, period=0.005):
+        self.period, self.before, self.peak = period, 0, 0
+        self._stop = threading.Event()
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self):
+        while not self._stop.wait(self.period):
+            self.peak = max(self.peak, self.rss())
+
+    def __enter__(self):
+        self.before = self.peak = self.rss()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
 
 
 def elastic_expected(spec=ELASTIC):
@@ -2075,7 +2118,7 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
     want = elastic_expected(spec)
     launches, shapes = dict(ops.LAUNCHES), Counter(ops.LAUNCH_SHAPES)
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        room = elastic_preflight(checkpoint_bytes(cfg), ckpt_dir)
+        room = elastic_preflight(checkpoint_bytes(cfg), largest_leaf_bytes(cfg), ckpt_dir)
         log(f"elastic: checkpoint room [{card}]:", json.dumps(room))
         t0 = time.perf_counter()
         tr = ElasticTrainer(
@@ -2099,12 +2142,14 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
             t_sums = time.perf_counter()
             sums = state_sums(tr.state)
             sync()
-            t0 = time.perf_counter()
-            save()
-            t1 = time.perf_counter()
+            with RssPeak() as rss:
+                t0 = time.perf_counter()
+                save()
+                t1 = time.perf_counter()
             path = os.path.join(ckpt_dir, f"step{tr.step:08d}_shard0.npz")
             saves.append(dict(step=tr.step, s=t1 - t0, with_sums_s=t1 - t_sums, sums=sums,
-                              bytes=os.path.getsize(path),
+                              bytes=os.path.getsize(path), rss_gb=(rss.before / 1e9,
+                                                                   rss.peak / 1e9),
                               durable_step=tr.controller.durable_step()))
 
         tr.save_checkpoint = timed_save
@@ -2120,11 +2165,13 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
                                  ms=wall - save_ms, control_ms=clock.ms, save_ms=save_ms))
             if op == "restore_latest":
                 sync()
-                t0 = time.perf_counter()
-                ok = tr.restore_latest()
-                sync()
-                restore = dict(ok=ok, step=tr.step, s=time.perf_counter() - t0,
-                               sums=state_sums(tr.state))
+                with RssPeak() as rss:
+                    t0 = time.perf_counter()
+                    ok = tr.restore_latest()
+                    sync()
+                    s = time.perf_counter() - t0
+                restore = dict(ok=ok, step=tr.step, s=s, sums=state_sums(tr.state),
+                               rss_gb=(rss.before / 1e9, rss.peak / 1e9))
             elif op is not None:
                 t0 = time.perf_counter()
                 tel = (tr.scale_to(list(args)) if op == "scale_to"
@@ -2149,7 +2196,7 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
                    pods=list(ctrl.membership()[1]), durable_step=ctrl.durable_step(),
                    ledger_entries=len(ledger.history), retired_configs=ctrl.retired_config_count(),
                    changes=changes, replay_loss_rel=replay_rel, replay2_loss_rel=second_rel,
-                   losses=losses)
+                   losses=losses, events=list(tr.events))
 
         # the gates
         faults = []
@@ -2195,6 +2242,7 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
             save_s=saves[-1]["s"] if saves else None, restore_s=restore["s"],
             replay_loss=[first, replay],
             host_peak_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+            save_rss_gb=saves[-1]["rss_gb"] if saves else None, restore_rss_gb=restore["rss_gb"],
             steps=rows)
         if saves:
             out["save_gb_per_s"] = out["checkpoint_gb"] / out["save_s"]
@@ -2218,7 +2266,9 @@ def elastic_phase(card, spec=ELASTIC, device="cuda", cfg=None, seq_len=TRAIN["se
                 f"({out['save_gb_per_s']:.3f} GB/s, commit included), restore "
                 f"{out['restore_s']:.2f} s ({out['restore_gb_per_s']:.3f} GB/s); restored "
                 f"tensors equal to the saved ones: {restore['sums'] == saves[-1]['sums']}; "
-                f"the process's peak RSS {out['host_peak_rss_gb']:.1f} GB")
+                f"host RSS before and peak: save {json.dumps(out['save_rss_gb'])} GB, restore "
+                f"{json.dumps(out['restore_rss_gb'])} GB; the process's peak RSS "
+                f"{out['host_peak_rss_gb']:.1f} GB")
         log(f"elastic: replayed step {restore['step'] + 1} [{card}]: loss {replay!r} vs "
             f"{first!r} the first time, {replay_rel:.3e} relative (gate "
             f"{REPLAY_LOSS_RTOL}); the second replayed step {second_rel:.3e} (not gated)")

@@ -12,11 +12,23 @@ of its 40 layers).  The control plane (Matchmaker MultiPaxos) commits step
 records, checkpoint manifests and membership changes to the replicated
 ledger throughout.  Runs on the CUDA device unless ``--device cpu`` is
 given.
+
+On several devices, one process each, under ``torchrun``:
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch stablelm_12b --smoke --pods pod0,pod1,pod2,pod3 ...
+
+With ``WORLD_SIZE`` above 1 in the environment each process joins the
+default group (NCCL on CUDA, gloo on the CPU), trains on the card of its
+``LOCAL_RANK``, and the trainer meshes the group's ranks; only rank 0
+prints.  Without it the launcher runs in one process, pods logical on its
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import tempfile
@@ -25,6 +37,32 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.coord import ElasticConfig, ElasticTrainer
 from repro_torch.train import OptConfig
 from repro_torch.train.data import DataConfig
+
+# The ranks wait in a collective while rank 0 writes a checkpoint (stablelm's
+# 8 layers: 39 GB, 80-200 s on an H100 machine), so the group's timeout is
+# longer than a save.
+GROUP_TIMEOUT = datetime.timedelta(minutes=30)
+
+
+def join_group(device: str):
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1): joins the default group and
+    returns this rank's device, the card of its ``LOCAL_RANK`` on CUDA;
+    else returns ``device`` and joins nothing."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", timeout=GROUP_TIMEOUT, device_id=dev)
+    else:
+        dist.init_process_group("gloo", timeout=GROUP_TIMEOUT)
+    return dev
 
 
 def main(argv=None) -> None:
@@ -42,7 +80,20 @@ def main(argv=None) -> None:
     ap.add_argument("--fail-at", action="append", default=[], metavar="STEP=dead:replacement")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    device = join_group(args.device)
+    try:
+        run(args, device)
+    finally:
+        import torch.distributed as dist
 
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(args, device) -> None:
+    import torch.distributed as dist
+
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.replace(dtype="float32" if args.smoke else cfg.dtype)
     dcfg = DataConfig(
@@ -55,7 +106,7 @@ def main(argv=None) -> None:
         dcfg,
         pods=args.pods.split(","),
         ecfg=ElasticConfig(checkpoint_dir=args.checkpoint_dir),
-        device=args.device,
+        device=device,
     )
 
     scale_at = {int(k): v.split(",") for k, v in (x.split("=") for x in args.scale_at)}
@@ -73,18 +124,22 @@ def main(argv=None) -> None:
         trainer.run(nxt - trainer.step)
         if trainer.step in scale_at:
             tel = trainer.scale_to(scale_at.pop(trainer.step))
-            print(f"[step {trainer.step}] scaled -> {trainer.pods} "
-                  f"(active in {tel['activation_ms']:.2f} simulated ms)")
+            if rank0:
+                print(f"[step {trainer.step}] scaled -> {trainer.pods} "
+                      f"(active in {tel['activation_ms']:.2f} simulated ms)")
         if trainer.step in fail_at:
             dead, repl = fail_at.pop(trainer.step)
             tel = trainer.fail_and_replace(dead, repl)
-            print(f"[step {trainer.step}] failover {dead}->{repl} "
-                  f"(active in {tel['activation_ms']:.2f} simulated ms)")
-        if trainer.losses:
+            if rank0:
+                print(f"[step {trainer.step}] failover {dead}->{repl} "
+                      f"(active in {tel['activation_ms']:.2f} simulated ms)")
+        if rank0 and trainer.losses:
             print(f"[step {trainer.step}] loss={trainer.losses[-1]:.4f} "
                   f"epoch={trainer.epoch} pods={trainer.pods}")
 
     trainer.controller.check_safety()
+    if not rank0:
+        return
     ledger = trainer.controller.ledger()
     print(json.dumps({
         "final_loss": trainer.losses[-1],

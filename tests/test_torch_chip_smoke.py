@@ -562,8 +562,11 @@ def test_checkpoint_size_reckoning(tmp_path):
     cut = get_config(smoke.TRAIN["arch"]).replace(**smoke.TRAIN["cut"])
     n = smoke.checkpoint_bytes(cut)
     assert 39.0e9 < n < 39.1e9  # 12 B x 3.2512 B params
-    # two host copies and the headroom fit the H100 machine's 105.9 GB
-    assert smoke.CKPT_HOST_COPIES * n + smoke.HOST_HEADROOM_BYTES < 105.9e9
+    # the largest leaf, a stacked MLP weight (8 x 5120 x 13824 f32), and the
+    # headroom fit the H100 machine's 105.9 GB
+    leaf = smoke.largest_leaf_bytes(cut)
+    assert leaf == 4 * 8 * 5120 * 13824
+    assert smoke.CKPT_HOST_LEAVES * leaf + smoke.HOST_HEADROOM_BYTES < 105.9e9
     from repro_torch.train import OptConfig, checkpoint, init_state
 
     cfg = get_smoke_config("stablelm_12b").replace(dtype="float32")
@@ -575,12 +578,12 @@ def test_checkpoint_size_reckoning(tmp_path):
 
 
 def test_elastic_preflight_raises_when_short(tmp_path, monkeypatch):
-    assert smoke.elastic_preflight(10 ** 6, str(tmp_path))["checkpoint_gb"] == 1e-3
+    assert smoke.elastic_preflight(10 ** 6, 10 ** 5, str(tmp_path))["checkpoint_gb"] == 1e-3
     with pytest.raises(AssertionError, match="no room"):
-        smoke.elastic_preflight(10 ** 18, str(tmp_path))  # the disk
+        smoke.elastic_preflight(10 ** 18, 10 ** 5, str(tmp_path))  # the disk
     monkeypatch.setattr(smoke, "mem_available_bytes", lambda: 10 ** 9)
     with pytest.raises(AssertionError, match="no room"):
-        smoke.elastic_preflight(10 ** 6, str(tmp_path))  # the memory
+        smoke.elastic_preflight(10 ** 6, 10 ** 5, str(tmp_path))  # the memory
 
 
 def elastic_smoke():

@@ -1,8 +1,9 @@
 """The port stands apart from the JAX package and runs on CUDA unless asked.
 
-* Importing every ``repro_torch`` module, ``chip_smoke.py`` and the ranks of
-  the multi-rank tests (``tests/multidevice_ranks.py``) loads neither jax
-  nor any module of ``repro`` (checked in a fresh interpreter).
+* Importing every ``repro_torch`` module, ``chip_smoke.py``, the ranks of
+  the multi-rank tests (``tests/multidevice_ranks.py``) and the multi-card
+  tools (``tools/{elastic_cards,tp_serve}.py``) loads neither jax nor any
+  module of ``repro`` (checked in a fresh interpreter).
 * The port's copy of each config equals the JAX package's, field for field.
 * Entry points asked for no device try CUDA, and raise where it is absent:
   the LM, the encoder-decoder, the Engine.
@@ -47,6 +48,8 @@ sys.path.insert(0, {root!r})
 import chip_smoke
 sys.path.insert(0, {root!r} + "/tests")
 import multidevice_ranks  # the gloo ranks of tests/test_torch_multidevice.py
+sys.path.insert(0, {root!r} + "/tools")
+import elastic_cards, tp_serve  # the multi-card tools
 import json, os, subprocess, time, torch  # what chip_smoke's phases import
 bad = sorted(n for n in sys.modules
              if n in ("jax", "jaxlib", "ml_dtypes", "repro") or n.startswith(("jax.", "repro.")))

@@ -5,26 +5,27 @@
 
 Draws ``chip_smoke.TRAIN``'s state (stablelm-12b at its published widths,
 8 of 40 layers: f32 masters, m and v, ~39 GB) on the card and runs the
-operations of ``repro_torch.train.checkpoint.save`` and ``restore`` one at
-a time, in their order, timing each: the device-to-host copy of every
-leaf, ``np.savez``, the read-back, its sha256; then the restore's read
-and sha256, ``np.load`` of every member, and the host-to-device copy into
-the state.  Prints each piece's seconds and GB/s with the card's name and
-power limit, and writes the JSON line to ``--out``
-(``build/checkpoint_probe.json`` by default).  The shard goes to a
-temporary directory, removed at the end.  Needs one CUDA card, ~80 GB of
-host memory and ~41 GB of disk.
+operations of ``repro_torch.train.checkpoint.save`` and ``restore`` in
+their order, through the module's own pieces, summing each piece's time
+over the leaves: the save's device-to-host copy of a leaf and the write of
+its npz member (hashed as it goes to the file, zip's CRC included); the
+restore's sha256 of the file in chunks, the read of each member and the
+host-to-device copy into the state.  Prints each piece's seconds and GB/s
+with the card's name and power limit, and writes the JSON line to
+``--out`` (``build/checkpoint_probe.json`` by default).  The shard goes to
+a temporary directory, removed at the end.  Needs one CUDA card, the host
+memory of a leaf (2.3 GB) and ~41 GB of disk.
 """
 
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import sys
 import tempfile
 import time
+import zipfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -56,42 +57,42 @@ def main() -> int:
     def timed(name, fn):
         t0 = time.perf_counter()
         out = fn()
-        times[name] = time.perf_counter() - t0
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
-        chip_smoke.elastic_preflight(chip_smoke.checkpoint_bytes(cfg), tmp)
+        chip_smoke.elastic_preflight(chip_smoke.checkpoint_bytes(cfg),
+                                     chip_smoke.largest_leaf_bytes(cfg), tmp)
         path = os.path.join(tmp, "step00000000_shard0.npz")
-        blobs = timed("save_device_to_host", lambda: {
-            f"leaf{i}": checkpoint._to_numpy(leaf)[0] for i, leaf in enumerate(leaves)})
-        timed("save_np_savez", lambda: np.savez(path, **blobs))
-        del blobs
+        entries = []
+        with open(path, "wb") as f:
+            writer = checkpoint._HashingWriter(f)
+            with zipfile.ZipFile(writer, mode="w") as zf:
+                for i, (name, leaf) in enumerate(zip(names, leaves)):
+                    arr, dtype = timed("save_device_to_host", lambda: checkpoint._to_numpy(leaf))
+
+                    def write():
+                        with zf.open(checkpoint._member(f"leaf{i}"), "w",
+                                     force_zip64=True) as member:
+                            np.lib.format.write_array(member, arr, allow_pickle=False)
+
+                    timed("save_write_hashed", write)
+                    entries.append(dict(name=name, key=f"leaf{i}", shape=list(arr.shape),
+                                        dtype=dtype))
+                    del arr
         nbytes = os.path.getsize(path)
-
-        def read():
-            with open(path, "rb") as f:
-                return f.read()
-
-        data = timed("save_read_back", read)
-        timed("save_sha256", lambda: hashlib.sha256(data).hexdigest())
-        del data
-        data = timed("restore_read", read)
-        timed("restore_sha256", lambda: hashlib.sha256(data).hexdigest())
-        del data
-
-        def load():
-            with np.load(path) as z:
-                return {k: z[k] for k in z.files}
-
-        loaded = timed("restore_np_load", load)
+        timed("restore_sha256", lambda: checkpoint._digest(path))
 
         @torch.no_grad()
-        def to_device():
-            for i, leaf in enumerate(leaves):
-                leaf.copy_(torch.from_numpy(loaded[f"leaf{i}"].copy()).to(leaf.dtype))
+        def to_device(leaf, src):
+            leaf.copy_(src.to(leaf.dtype))
             torch.cuda.synchronize()
 
-        timed("restore_host_to_device", to_device)
+        with np.load(path) as z:
+            for leaf, e in zip(leaves, entries):
+                src = timed("restore_read_member", lambda: checkpoint._stored_tensor(z, e))
+                timed("restore_host_to_device", lambda: to_device(leaf, src))
+                del src
     gb = nbytes / 1e9
     row = dict(card=card, arch=cfg.arch_id, n_layers=cfg.n_layers, leaves=len(names),
                checkpoint_gb=gb, seconds=times,
