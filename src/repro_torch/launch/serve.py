@@ -26,6 +26,13 @@ config's type, in place of a speech frontend.
 
 Runs on the CUDA device unless ``--device cpu`` is given; random weights
 from ``--seed``.
+
+``--trace`` records the call's spans (``repro_torch.tracing``) and prints,
+after it, each span name's count and median host and device milliseconds
+(``-`` off the card), then every counter::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2p7b --smoke \
+      --device cpu --trace
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import time
 
 import torch
 
-from repro_torch import resolve_device, torch_dtype
+from repro_torch import resolve_device, torch_dtype, tracing
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import get_model
 from repro_torch.models.mamba2 import check_prompt_len
@@ -48,6 +55,20 @@ def device_label(device: torch.device) -> str:
     return "CPU"
 
 
+def print_spans(spans) -> None:
+    """Each span name's count and median host and device milliseconds."""
+    print("spans: name count host_ms device_ms (medians)")
+    for name, (n, host, dev) in tracing.summary(spans).items():
+        dev_ms = "-" if dev is None else f"{1e3 * dev:.3f}"
+        print(f"  {name} {n} {1e3 * host:.3f} {dev_ms}")
+
+
+def print_counters(counters) -> None:
+    print("counters:")
+    for name, value in counters.items():
+        print(f"  {name} {value:.6g}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -58,6 +79,8 @@ def main(argv=None) -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", action="store_true",
+                    help="print the call's spans and the counters after it")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -79,6 +102,8 @@ def main(argv=None) -> None:
                                        device=device).to(torch_dtype(cfg.dtype))
 
     eng = Engine(model, max_len=args.prompt_len + args.gen + 1, device=device)
+    if args.trace:
+        tracing.enable()
     t0 = time.perf_counter()
     out = eng.generate(
         batch, args.gen, temperature=args.temperature,
@@ -87,12 +112,16 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
+    tracing.disable()
     print(f"arch={cfg.arch_id} batch={args.batch} prompt={args.prompt_len} "
           f"generated={out.steps} tokens/request")
     print(f"wall {dt:.2f}s -> {args.batch * out.steps / dt:.1f} tok/s "
           f"({device_label(device)}, first call, incl. kernel build)")
     for i in range(min(args.batch, 2)):
         print(f"  request {i}: {out.tokens[i].tolist()}")
+    if args.trace:
+        print_spans(tracing.drain())
+        print_counters(tracing.counters())
 
 
 if __name__ == "__main__":

@@ -30,6 +30,12 @@ samples the same tokens (temperature sampling: from generators seeded
 alike) and replays the same steps in the same order.  On four cards of one
 host (``tools/tp_serve.py``) the captured steps, NCCL collectives inside,
 give the tokens and logits of the eager steps bit for bit.
+
+Tracing (``repro_torch.tracing``): a call is the span ``engine.generate``;
+each step's sampling, from the logits to the tokens laid out for the next
+step (their copy to the host included), is ``engine.sample``; the captured
+steps add their own (``graph``).  Every token is copied to the host before
+the next decode step is called, the last token's too.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..models import EncDecLM, LM
 from ..models import sharding
 from .graph import CapturedDecode, CapturedStep, CudaGraph, decode_inputs, layout
@@ -133,25 +139,28 @@ class Engine:
         the engine's device."""
         if temperature > 0.0 and generator is None:
             raise ValueError("temperature sampling needs a torch.Generator")
-        batch = {k: self._laid_out(v) for k, v in batch.items()}
-        logits, state = self._prefill(batch)
-        B = batch["tokens"].shape[0]
-        outs: List[np.ndarray] = []
-        done = np.zeros((B,), bool)
-        for _ in range(n_steps):
-            last = sharding.whole(logits)[:, -1]
-            if temperature > 0.0:
-                probs = torch.softmax(last / temperature, dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            else:
-                nxt = torch.argmax(last, dim=-1)
-            nxt_np = nxt.cpu().numpy()
-            outs.append(nxt_np)
-            if self.eos_id is not None:
-                done |= nxt_np == self.eos_id
-                if done.all():
-                    break
-            logits, state = self._decode(state, self._laid_out(nxt[:, None]))
+        B, S = batch["tokens"].shape
+        with tracing.span("engine.generate", {"B": B, "prompt": S, "n_steps": n_steps}):
+            batch = {k: self._laid_out(v) for k, v in batch.items()}
+            logits, state = self._prefill(batch)
+            outs: List[np.ndarray] = []
+            done = np.zeros((B,), bool)
+            for _ in range(n_steps):
+                with tracing.span("engine.sample"):
+                    last = sharding.whole(logits)[:, -1]
+                    if temperature > 0.0:
+                        probs = torch.softmax(last / temperature, dim=-1)
+                        nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+                    else:
+                        nxt = torch.argmax(last, dim=-1)
+                    nxt_np = nxt.cpu().numpy()
+                    outs.append(nxt_np)
+                    if self.eos_id is not None:
+                        done |= nxt_np == self.eos_id
+                        if done.all():
+                            break
+                    tokens = self._laid_out(nxt[:, None])
+                logits, state = self._decode(state, tokens)
         return GenerationResult(tokens=np.stack(outs, axis=1), steps=len(outs))
 
     def _graph(self):
@@ -171,6 +180,8 @@ class Engine:
         memory pool go with it: an Engine holds one captured prefill."""
         key = layout(batch)
         if key not in self._prefills:
+            if self._prefills:
+                tracing.count("prefill_evictions")
             self._prefills = {key: CapturedStep(self._eager_prefill, batch, self._graph())}
         return self._prefills[key]
 

@@ -42,6 +42,12 @@ length).
   the counts that the capture's Python made: one step's launches.
 * Without ``graph`` (the CPU) the same step runs uncaptured every time, on
   the same buffers, so the CPU runs exactly the step that the card captures.
+* Tracing (``repro_torch.tracing``): a layout's first call is the span
+  ``step.capture`` and counts in ``captures.<kind>`` and
+  ``capture_s.<kind>``; every later call is the span ``step.replay``, whose
+  events sit on the current stream just before and after the replay, and
+  counts in ``replays.<kind>`` (``kind`` ``prefill`` or ``decode``).  No
+  event is recorded inside a capture.
 
 A capture or a replay that fails raises; nothing falls back to the eager
 step.
@@ -49,6 +55,7 @@ step.
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -56,6 +63,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
+from .. import tracing
 from ..kernels import ops
 
 Step = Callable[[Dict[str, Any], torch.Tensor], Tuple[torch.Tensor, Dict[str, Any]]]
@@ -120,7 +128,10 @@ class CudaGraph:
 class CapturedStep:
     """``fn(inputs)`` on static buffers, for the layout of ``like``: on CUDA
     captured (``graph``, e.g. ``CudaGraph``, makes the graph) and replayed;
-    without ``graph`` run uncaptured."""
+    without ``graph`` run uncaptured.  ``kind`` names the step in spans and
+    counters: the Engine's prefill."""
+
+    kind = "prefill"
 
     def __init__(self, fn: Callable[[Any], Any], like: Any,
                  graph: Optional[Callable[[], Any]] = None):
@@ -128,6 +139,9 @@ class CapturedStep:
         self.key = layout(like)
         self.inputs = tree_map(static_like, like)
         self.graph = graph() if graph is not None else None
+        self.span_attrs = {"kind": self.kind}  # built once: a call builds nothing to trace
+        self.replays_key = "replays." + self.kind
+        self.made = False  # its first call ran (and, with a graph, captured it)
         self.captured = False
         self.out: Any = None  # the captured step's outputs
         self.launches: Counter = Counter()  # the capture's counts: one step's
@@ -155,12 +169,29 @@ class CapturedStep:
     def run(self) -> Any:
         """The step on the static buffers as they stand: the first call
         uncaptured, then the capture; later calls one replay each."""
-        if self.graph is None:
-            return self.body()
-        if not self.captured:
-            first = self.graph.warm_up(self.body)
-            self._capture()
-            return first
+        if not self.made:
+            return self._first()
+        with tracing.span("step.replay", self.span_attrs):
+            out = self.body() if self.graph is None else self._replay()
+        tracing.count(self.replays_key)
+        return out
+
+    def _first(self) -> Any:
+        """The layout's first call: the step uncaptured and, with a graph, its
+        capture."""
+        start = time.perf_counter()
+        with tracing.span("step.capture", self.span_attrs):
+            if self.graph is None:
+                out = self.body()
+            else:
+                out = self.graph.warm_up(self.body)
+                self._capture()
+        self.made = True
+        tracing.count("captures." + self.kind)
+        tracing.count("capture_s." + self.kind, time.perf_counter() - start)
+        return out
+
+    def _replay(self) -> Any:
         self.graph.replay()
         self.replays += 1
         for name, n in self.launches.items():
@@ -196,6 +227,8 @@ class CapturedDecode(CapturedStep):
     layout of its inputs ``decode_inputs(like, tokens)``: the decode state
     and the (B, 1) tokens (the Engine gives its first tokens, on a mesh laid
     out by ``batch_spec``)."""
+
+    kind = "decode"
 
     def __init__(self, step: Step, like: Dict[str, Any],
                  graph: Optional[Callable[[], Any]] = None,

@@ -14,6 +14,11 @@ reference's Pallas kernels have no VJP.
 On a mesh (``place_state``, then the step under ``sharding.set_mesh``) the
 masters, moments and batch are DTensors; ``grad_specs`` pins the bf16
 gradients to the parameters' layout, and the metrics come back whole.
+
+Tracing (``repro_torch.tracing``): a step is the span ``train.step``; each
+microbatch's gradient and its bf16 accumulation ``train.grad`` (attribute
+``i``); the optimizer's update, called through the module attribute
+``optimizer.update``, ``train.update``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..models import get_model
 from ..models.config import ModelConfig
 from ..models.sharding import Spec, place, place_module, to_placements, whole
@@ -151,31 +156,36 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.OptConfig, *, microbatches: int 
     by parameter name) pins the bf16 gradients on a mesh to the parameter
     layout, the sum of the microbatches' and their mean too."""
     grad_fn = make_grad_fn(cfg, grad_specs)
+    grad_attrs = [{"i": i} for i in range(max(1, microbatches))]  # built once, for the spans
 
     def train_step(state: TrainState, batch: Dict[str, Tensor]):
-        model = state.params
-        if microbatches <= 1:
-            loss, metrics, grads = grad_fn(model, batch)
-        else:
-            grads, loss_sum, per_mb = None, 0.0, []
-            for i in range(microbatches):
-                mb_batch = {k: _microbatch(v, i, microbatches) for k, v in batch.items()}
-                loss, metrics, g = grad_fn(model, mb_batch)
-                if grads is None:  # 0 + g in bf16 is g
-                    grads = g
-                else:
-                    for name, acc in grads.items():
-                        acc.add_(g[name])
-                loss_sum = loss_sum + loss
-                per_mb.append(metrics)
-            for name, acc in grads.items():
-                grads[name] = _pin(acc.div_(microbatches), grad_specs, name)
-            loss = loss_sum / microbatches
-            metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+        with tracing.span("train.step"):
+            model = state.params
+            if microbatches <= 1:
+                with tracing.span("train.grad", grad_attrs[0]):
+                    loss, metrics, grads = grad_fn(model, batch)
+            else:
+                grads, loss_sum, per_mb = None, 0.0, []
+                for i in range(microbatches):
+                    mb_batch = {k: _microbatch(v, i, microbatches) for k, v in batch.items()}
+                    with tracing.span("train.grad", grad_attrs[i]):
+                        loss, metrics, g = grad_fn(model, mb_batch)
+                        if grads is None:  # 0 + g in bf16 is g
+                            grads = g
+                        else:
+                            for name, acc in grads.items():
+                                acc.add_(g[name])
+                    loss_sum = loss_sum + loss
+                    per_mb.append(metrics)
+                for name, acc in grads.items():
+                    grads[name] = _pin(acc.div_(microbatches), grad_specs, name)
+                loss = loss_sum / microbatches
+                metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
 
-        _, new_opt, opt_metrics = opt.update(ocfg, dict(model.named_parameters()), grads,
-                                             state.opt)
-        metrics = {**metrics, **opt_metrics, "loss": loss}
+            with tracing.span("train.update"):
+                _, new_opt, opt_metrics = opt.update(ocfg, dict(model.named_parameters()), grads,
+                                                     state.opt)
+            metrics = {**metrics, **opt_metrics, "loss": loss}
         return TrainState(model, new_opt, state.step + 1), metrics
 
     return train_step
